@@ -1,4 +1,4 @@
-"""Full experiment campaign on the real TPU: the L5/L6 workflow end-to-end.
+"""Full experiment campaign on the GPU: the L5/L6 workflow end-to-end.
 
 Mirrors the reference's multiplication-experiment campaign
 (run_multiplication_experiments_fixed_cluster.sh): generate the synthetic
@@ -34,9 +34,10 @@ def main():
     ap.add_argument("--autotune", action="store_true")
     args = ap.parse_args()
 
-    from sparta_tpu.bench.device import require_device
+    from sparta_tpu.runtime import require_gpu, setup_compile_cache
 
-    require_device()
+    setup_compile_cache()
+    require_gpu()
     from sparta_tpu.bench.sweep import EXPERIMENT_BUNDLES, collect_csvs, run_sweep
     from sparta_tpu.cli import Config
     from sparta_tpu.datasets import synthetic_suite

@@ -5,7 +5,8 @@ graphs plus the scale-17 RMAT negative-result case from graph_bench.
 For each matrix at N=2048 bf16 measures:
   - bcoo     : the jax.experimental.sparse scatter baseline (round-2 status quo)
   - fell     : pure-XLA virtual-row ELL + sorted segment_sum
-  - fine     : slab gather + Pallas mask-matmul combine (production path)
+  - fine     : gather + sorted segment-sum combine
+  - dedup    : distinct-column gather + batched-dot combine
   - auto     : whatever csr_spmm_auto now picks (name recorded)
 
 Writes results/fine_bench.json.  Usage: python scripts/fine_bench.py [--quick]
@@ -39,7 +40,6 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from sparta_tpu.bench.device import require_device
     from sparta_tpu.bench.results import write_result
     from sparta_tpu.bench.timing import time_op
     from sparta_tpu.datasets import load_reference_graph
@@ -56,7 +56,10 @@ def main():
         fine_spmm,
     )
 
-    require_device()
+    from sparta_tpu.runtime import require_gpu, setup_compile_cache
+
+    setup_compile_cache()
+    require_gpu()
     log(f"devices: {jax.devices()}")
     rng = np.random.default_rng(0)
     N = args.n

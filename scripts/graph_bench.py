@@ -1,5 +1,5 @@
 """BASELINE config 3 + the reference's RMAT headline: power-law graph
-blocked SpMM, 128x128 MXU tiles, one chip.
+blocked SpMM, 128x128 tiles, one GPU.
 
 Defaults mirror the reference's headline matrix (RMAT N13: 8192 nodes,
 ~664k nnz, B_cols=8192 — its BCSR took 0.541 ms vs 6.58 ms cuSPARSE-CSR on
@@ -9,9 +9,8 @@ raw power-law graphs at low average degree block very poorly (0.04%% block
 fill at scale 17 / ef 8 — 147k blocks from 1M nnz), which is exactly why
 the reference's blocked experiments use dense RMATs and SuiteSparse FEM
 matrices. Pipeline: hash-greedy blocking (algo 7, scales to large n) ->
-compact CSR-of-blocks (ELL padding is prohibitive on power-law rows) ->
-unrolled kernel when a B tile fits VMEM, compact-gather kernel otherwise,
-vs unstructured CSR BCOO and dense GEMM baselines.
+Blocked-ELL -> the blocked Triton kernel, vs unstructured CSR BCOO, dense
+GEMM and the fine-grained dedup path.
 
 Usage: python scripts/graph_bench.py [--scale 13] [--feat 8192]
 """
@@ -44,9 +43,10 @@ def main():
 
     import jax
 
-    from sparta_tpu.bench.device import require_device
+    from sparta_tpu.runtime import require_gpu, setup_compile_cache
 
-    require_device()
+    setup_compile_cache()
+    require_gpu()
     import jax.numpy as jnp
 
     from sparta_tpu.bench.timing import time_op
@@ -54,12 +54,9 @@ def main():
     from sparta_tpu.formats import bell_from_csr
     from sparta_tpu.formats.csr import rmat_csr
     from sparta_tpu.ops import (
-        BellCompactDevice,
+        BellDevice,
         bcoo_spmm,
-        bell_spmm_pallas_compact_gather,
-        bell_spmm_pallas_compact_unrolled,
-        compact_auto_chunk,
-        compact_from_host_padded,
+        bell_spmm_triton,
         csr_to_bcoo,
     )
     from sparta_tpu.reorder import BlockingEngine
@@ -93,7 +90,7 @@ def main():
         f"{bell.total_nzblocks}  max_nb {int(nat_nb.max())} -> "
         f"{int(bell.nb_row.max())}")
 
-    dev = BellCompactDevice.from_host(bell, dtype=dtype)
+    dev = BellDevice.from_host(bell, dtype=dtype)
     B = jnp.asarray(
         np.random.default_rng(0).standard_normal((bell.shape[1], N)),
         dtype=dtype,
@@ -102,25 +99,9 @@ def main():
     results = {"nodes": n, "nnz": m.nnz, "nzblocks": int(bell.total_nzblocks),
                "blocking_s": round(t_block, 2)}
 
-    tn = next(t for t in (512, 256, 128, 64, 32) if N % t == 0)
-    avg, std, _ = time_op(
-        lambda b: bell_spmm_pallas_compact_gather(dev, b, tn=tn), B, reps=3)
-    log(f"compact_gather : {avg*1e3:9.3f} ms ({flops/avg/1e12:6.2f} TF/s eff, "
+    avg, std, _ = time_op(lambda b: bell_spmm_triton(dev, b), B, reps=3)
+    log(f"blocked_triton : {avg*1e3:9.3f} ms ({flops/avg/1e12:6.2f} TF/s eff, "
         f"{m.nnz/avg/1e9:.2f} Gnnz/s, std {std*1e3:.3f})")
-    results["gather_ms"] = round(avg * 1e3, 3)
-
-    K = bell.shape[1]
-    if K * tn * B.dtype.itemsize <= 12 * 2**20:
-        chunk = compact_auto_chunk(bell.nb_row)
-        cpad = compact_from_host_padded(bell, chunk, dtype=dtype)
-        avg_u, std_u, _ = time_op(
-            lambda b: bell_spmm_pallas_compact_unrolled(cpad, b, tn=tn,
-                                                        chunk=chunk),
-            B, reps=3)
-        log(f"unrolled c={chunk}   : {avg_u*1e3:9.3f} ms "
-            f"({flops/avg_u/1e12:6.2f} TF/s eff, std {std_u*1e3:.3f})")
-        results["unrolled_ms"] = round(avg_u * 1e3, 3)
-        avg = min(avg, avg_u)
     results["blocked_ms"] = round(avg * 1e3, 3)
     results["blocked_gnnz_per_s"] = round(m.nnz / avg / 1e9, 3)
 

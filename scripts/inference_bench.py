@@ -2,8 +2,8 @@
 matrices, 80-95% sparse, SpMM batch inference on one chip.
 
 A dense weight is pruned to block-sparse by block Frobenius norm
-(BlockSparseLinear.from_dense), then y = x @ W^T runs on the Pallas bell
-kernel; compared against the dense MXU matmul at each sparsity, and against
+(BlockSparseLinear.from_dense), then y = x @ W^T runs on the blocked
+kernel; compared against the dense GEMM at each sparsity, and against
 running the same pruned weights as unstructured CSR.
 
 Usage: python scripts/inference_bench.py [--dim 4096] [--batch 1024]
@@ -36,9 +36,10 @@ def main():
 
     import jax
 
-    from sparta_tpu.bench.device import require_device
+    from sparta_tpu.runtime import require_gpu, setup_compile_cache
 
-    require_device()
+    setup_compile_cache()
+    require_gpu()
     import jax.numpy as jnp
 
     from sparta_tpu.bench.timing import time_op

@@ -1,16 +1,14 @@
 """Multi-chip scaling benchmark: nnz/s at 1..N devices, all three layouts.
 
-Measures the BASELINE.md scaling target (>=80% nnz/s efficiency beyond one
-host) for row-sharded / ring / colsplit+reduce_scatter SpMM.  Runs on
-whatever devices exist — a real pod slice, or a virtual CPU mesh for logic
-validation:
+Row-sharded / ring / colsplit+reduce_scatter SpMM at 1..N devices.  Runs
+on whatever devices exist — the GPUs of one host, or a virtual CPU mesh for
+logic validation (no device numbers come from that):
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python scripts/scaling_bench.py
 
-On TPU the shard-local compute is the production Pallas kernel
-(use_pallas default); on CPU the XLA path keeps timings meaningful
-(interpret-mode Pallas timing is not).
+On the GPU the shard-local compute is the blocked Triton kernel; on the
+CPU it is the XLA path.
 """
 import json
 import sys
@@ -23,9 +21,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main():
     import jax
 
-    from sparta_tpu.bench.device import ensure_cpu_backend
+    from sparta_tpu.runtime import device_info, setup_compile_cache
 
-    ensure_cpu_backend()
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -43,14 +41,14 @@ def main():
         split_bell_cols,
     )
 
-    on_tpu = jax.default_backend() != "cpu"
+    on_gpu = jax.default_backend() == "gpu"
     n_dev = jax.device_count()
-    print(f"devices: {n_dev} backend: {jax.default_backend()}", file=sys.stderr)
-    size = 8192 if on_tpu else 1024
+    print(f"device: {device_info()}", file=sys.stderr)
+    size = 8192 if on_gpu else 1024
     m = random_block_csr(size, size, block=128, block_density=0.1,
                          intra_density=0.3, seed=3)
     bell = bell_from_csr(m, None, block_row_size=128)
-    N = 1024 if on_tpu else 256
+    N = 1024 if on_gpu else 256
     rows = []
 
     for nd in [d for d in (1, 2, 4, 8, 16, 32) if d <= n_dev]:

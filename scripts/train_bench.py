@@ -2,7 +2,7 @@
 
 The model-level composition bench: full train steps (loss + grads +
 adamw update) through the block-sparse FFN SpMM custom-VJP kernels and
-the v2 fused flash attention, vs the dense-attention baseline.  Reports
+the block-sparse attention (XLA), vs the dense-attention baseline.  Reports
 tokens/s and ms/step per configuration:
 
   dense_T2048   full causal attention (baseline)
@@ -47,9 +47,10 @@ def main():
 
     import jax
 
-    from sparta_tpu.bench.device import require_device
+    from sparta_tpu.runtime import require_gpu, setup_compile_cache
 
-    require_device()
+    setup_compile_cache()
+    require_gpu()
     import jax.numpy as jnp
     import optax
 

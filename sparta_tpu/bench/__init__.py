@@ -1,4 +1,4 @@
 from .runner import run_experiment, save_csv
-from .timing import make_timed_loop, time_fn_once, time_op
+from .timing import time_op
 
-__all__ = ["make_timed_loop", "run_experiment", "save_csv", "time_fn_once", "time_op"]
+__all__ = ["run_experiment", "save_csv", "time_op"]

@@ -9,7 +9,7 @@ run is PHYSICALLY unable to claim the canonical path — it is rerouted to
 
 Reference analog: the reference's CSVs are all device-measured
 (``/root/reference/rmtas_multiplication.csv``); there is no ambiguity to
-guard against there — here the CPU interpret path makes one.
+guard against there — here a CPU run makes one.
 """
 from __future__ import annotations
 

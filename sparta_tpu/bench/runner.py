@@ -1,10 +1,10 @@
 """Experiment runner: read -> (reorder) -> block -> SpMM -> CSV.
 
-TPU-native equivalent of the reference's main harness
-(test/cuda/cuda_multiply.cpp): one process = one experiment config, emitting
-a 2-line CSV (header + values) with the reference's exact 31-column schema
-(src/general/utilities.cpp:175-245) plus TPU-side extras appended, so the
-reference's collation/plotting layer applies unchanged.
+The counterpart of the reference's main harness (test/cuda/cuda_multiply.cpp):
+one process = one experiment config, emitting a 2-line CSV (header + values)
+with the reference's exact 31-column schema (src/general/utilities.cpp:175-245)
+plus this framework's extras appended, so the reference's collation/plotting
+layer applies unchanged.
 """
 from __future__ import annotations
 
@@ -84,7 +84,6 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
         csr_to_bcoo,
         dense_matmul,
     )
-    from ..ops.dense_pallas import dense_matmul_pallas
 
     algo = MultiplicationAlgo(cfg.multiplication_algo)
     # int8/fp8 run the quantized blocked path for -M 8; other backends use
@@ -93,22 +92,13 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
         else jnp.float32
     N = cfg.b_cols
 
-    if algo == MultiplicationAlgo.dense_xla:
+    autotune = True if getattr(cfg, "autotune", False) else None
+
+    if algo in (MultiplicationAlgo.dense_xla, MultiplicationAlgo.dense_pallas):
+        # -M 9 (the former hand-written dense kernel) is the same GEMM:
+        # XLA hands it to cuBLAS on the GPU
         A = jnp.asarray(m.to_dense(), dtype=dtype)
         return (lambda B: dense_matmul(A, B)), (m.cols, N), "dense_xla", 2 * m.rows * m.cols * N
-
-    if algo == MultiplicationAlgo.dense_pallas:
-        Mp, Kp = round_up(m.rows, 512), round_up(m.cols, 512)
-        A = np.zeros((Mp, Kp), dtype=np.float32)
-        A[: m.rows, : m.cols] = m.to_dense()
-        A = jnp.asarray(A, dtype=dtype)
-        Np = round_up(N, 512)
-        return (
-            lambda B: dense_matmul_pallas(A, B),
-            (Kp, Np),
-            "dense_pallas",
-            2 * Mp * Kp * Np,
-        )
 
     if algo == MultiplicationAlgo.csr_spmm:
         impl = getattr(cfg, "csr_impl", "auto")
@@ -137,8 +127,7 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
                     f"csr_{impl}" + ("_int8" if q else ""), 2 * m.nnz * Np)
         from ..ops.csr_spmm import csr_spmm_auto
 
-        fn, name, flops = csr_spmm_auto(
-            m, N, dtype=dtype, autotune=bool(getattr(cfg, 'autotune', False)))
+        fn, name, flops = csr_spmm_auto(m, N, dtype=dtype, autotune=autotune)
         # every csr_spmm_auto leg takes the logical [K, N] operand
         return fn, (m.cols, N), name, flops
 
@@ -158,30 +147,21 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
         vbr = vbr_from_csr(m, grouping, col_block_size=cfg.col_block_size)
         flops = 2 * int((np.diff(vbr.block_ptr)).sum()) * N
         K = vbr.block_cols * vbr.block_col_size
-        # MXU path for -M 10 when blocks are tileable: height-bucketed
-        # unrolled kernels (vbr_pallas.py). The inverted product stays on
-        # the XLA path — transposing a row-grouped VBR yields variable
-        # block WIDTHS, which no kernel layout here supports.
-        if algo == MultiplicationAlgo.vbr_pallas \
-                and cfg.col_block_size % 128 == 0 and N % 128 == 0:
-            from ..ops import VbrPallasDevice, vbr_spmm_pallas
+        # blocked-kernel path for -M 10: height-bucketed products
+        # (vbr_pallas.py). The inverted product stays on the XLA path —
+        # transposing a row-grouped VBR yields variable block WIDTHS, which
+        # no kernel layout here supports.
+        if algo == MultiplicationAlgo.vbr_pallas:
+            from ..ops import vbr_kernel_device, vbr_spmm_pallas
 
-            from ..ops.select import auto_tile_n
-
-            pdev = VbrPallasDevice.from_host(vbr, dtype=dtype)
-            tn = cfg.tile_n or auto_tile_n(N)
-            return (
-                lambda B: vbr_spmm_pallas(pdev, B, tn=tn),
-                (K, N),
-                f"vbr_pallas_bucketed_tn{tn}",
-                flops,
-            )
-        # -M 11 without -F: variable-height inverted product on the MXU.
-        # Any direct VBR layout would contract over the VARIABLE dimension
-        # (group heights) — on v5e a narrow contracting dot costs as much
-        # as a full 128^3 dot, so instead we permute rows by the variable
-        # grouping and RE-TILE the transpose on the fixed 128 grid, then
-        # run the forward Pallas kernel: C = (A^T B^T)^T.  Numerically
+            pdev = vbr_kernel_device(vbr, dtype=dtype)
+            return (lambda B: vbr_spmm_pallas(pdev, B), (K, N),
+                    "vbr_pallas_bucketed", flops)
+        # -M 11 without -F: variable-height inverted product.  Any direct
+        # VBR layout would contract over the VARIABLE dimension (group
+        # heights), so instead we permute rows by the variable grouping and
+        # RE-TILE the transpose on the fixed 128 grid, then run the forward
+        # blocked product: C = (A^T B^T)^T.  Numerically
         # identical (padding blocks are zero); the variable grouping still
         # determines the permutation and the reported VBR stats.
         # Reference analog: cublas_blockmat_multiplyBA's rectangular path
@@ -195,8 +175,7 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
             mt = _CSR.from_scipy(m_r.to_scipy().T.tocsr())
             bell_t = bell_from_csr(mt, None, block_row_size=128,
                                    block_col_size=128)
-            plan = plan_spmm(bell_t, N, dtype=dtype, tile_n=cfg.tile_n or None,
-                             autotune=bool(getattr(cfg, 'autotune', False)))
+            plan = plan_spmm(bell_t, N, dtype=dtype, autotune=autotune)
             return (
                 lambda B: plan(B.T).T,
                 (N, bell_t.shape[1]),
@@ -230,11 +209,11 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
         return (lambda B: bell_spmm_xla(dev, B)), (bell.shape[1], N), "bell_xla", flops
 
     if algo in (MultiplicationAlgo.vbr_xla_inverted, MultiplicationAlgo.vbr_pallas_inverted):
-        # TPU-idiomatic inverted product: the reference computes C = B*A
-        # directly (one GemmEx per block, stream per block-column,
+        # inverted product: the reference computes C = B*A directly (one
+        # GemmEx per block, stream per block-column,
         # cuda_utilities.cpp:553-721) because CUDA stream write-ordering
-        # made that layout natural. On TPU we compute (A^T B^T)^T through
-        # the fast forward kernel instead — same result, full MXU path.
+        # made that layout natural. Here (A^T B^T)^T runs through the
+        # forward blocked product instead — same result.
         if N % 128 == 0:
             from ..formats.csr import CSR as _CSR
             from ..ops import plan_spmm
@@ -243,14 +222,10 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
             m_r = m if grouping is None else m.permute_rows(
                 get_permutation(get_fixed_size_grouping(grouping, cfg.row_block_size)))
             mt = _CSR.from_scipy(m_r.to_scipy().T.tocsr())
-            from ..ops.select import auto_tile_n
-
             bell_t = bell_from_csr(mt, None,
                                    block_row_size=cfg.col_block_size,
                                    block_col_size=cfg.row_block_size)
-            tn = cfg.tile_n or auto_tile_n(N)
-            plan = plan_spmm(bell_t, N, dtype=dtype, tile_n=tn,
-                             autotune=bool(getattr(cfg, 'autotune', False)))
+            plan = plan_spmm(bell_t, N, dtype=dtype, autotune=autotune)
             return (
                 lambda B: plan(B.T).T,
                 (N, bell_t.shape[1]),
@@ -276,56 +251,29 @@ def make_backend(cfg, m: CSR, engine: BlockingEngine):
     if algo in (MultiplicationAlgo.bell_pallas,
                 MultiplicationAlgo.bell_pallas_batched,
                 MultiplicationAlgo.vbr_pallas):
-        # fixed-size -M 10 gets the same Pallas bell family as -M 8
+        # fixed-size -M 10 gets the same blocked family as -M 8
         # (matches the CUTLASS-VBR analog documented in PARITY.md)
         Np = round_up(N, 128)
         fl = 2 * bell.total_nzblocks * bell.block_row_size * bell.block_col_size * Np
 
-        from ..ops.select import VMEM_BUDGET, auto_tile_n, unrolled_vmem_bytes
+        if cfg.dtype in ("int8", "fp8"):
+            # quantized blocked product: per-row A scales, per-(stripe,
+            # column) B scales (ops/quant.py)
+            from ..ops import QBellDevice, bell_spmm_quant, quantize_b_cols
 
-        if cfg.dtype in ("int8", "fp8") and bell.block_row_size % 8 == 0 \
-                and bell.block_col_size % 128 == 0:
-            from ..ops import (
-                FP8BellCompactDevice,
-                bell_spmm_fp8_unrolled,
-                bell_spmm_int8_rowcol,
-                compact_auto_chunk,
-                quantize_b_cols,
-                quantize_b_fp8,
-            )
-            from ..ops.quant import QBellRowColDevice
-
-            chunk = compact_auto_chunk(bell.nb_row)
+            qdtype = jnp.int8 if cfg.dtype == "int8" else jnp.float8_e4m3fn
+            dev_q = QBellDevice.from_bell(bell, dtype=qdtype)
             bw = bell.block_col_size
-            tn = cfg.tile_n or auto_tile_n(Np)
-            # the quantized kernels keep a 1-byte [K, tn] B tile resident in
-            # VMEM; large-K matrices fall through to the bf16 plan (which
-            # has gather/K-split paths) instead of faulting the dispatch
-            if unrolled_vmem_bytes(
-                bell.shape[1], tn, bell.block_row_size, bw, chunk, 1
-            ) <= VMEM_BUDGET:
-                if cfg.dtype == "int8":
-                    # row/col scales: same speed, ~1.5x lower quant error
-                    dev_q = QBellRowColDevice.from_bell(bell, chunk=chunk)
-                    quant, kern = quantize_b_cols, bell_spmm_int8_rowcol
-                else:
-                    dev_q = FP8BellCompactDevice.from_bell(bell, chunk=chunk)
-                    quant, kern = quantize_b_fp8, bell_spmm_fp8_unrolled
 
-                def fnq(B, dev_q=dev_q, bw=bw, tn=tn, chunk=chunk,
-                        quant=quant, kern=kern):
-                    Bq, bscale = quant(B, bw)
-                    return kern(dev_q, jnp.asarray(Bq).reshape(B.shape),
-                                bscale, tn=tn, chunk=chunk)
+            def fnq(B, dev_q=dev_q, bw=bw, qdtype=qdtype):
+                Bq, bscale = quantize_b_cols(B, bw, dtype=qdtype)
+                return bell_spmm_quant(dev_q, Bq, bscale)
 
-                kind = "rowcol" if cfg.dtype == "int8" else "unrolled"
-                return fnq, (bell.shape[1], Np), \
-                    f"bell_{cfg.dtype}_{kind}_tn{tn}_c{chunk}", fl
+            return fnq, (bell.shape[1], Np), f"bell_{cfg.dtype}_rowcol", fl
 
         from ..ops import plan_spmm
 
-        plan = plan_spmm(bell, Np, dtype=dtype, tile_n=cfg.tile_n or None,
-                         autotune=bool(getattr(cfg, 'autotune', False)))
+        plan = plan_spmm(bell, Np, dtype=dtype, autotune=autotune)
         return plan.fn, (bell.shape[1], Np), plan.backend, fl
 
     raise ValueError(f"no backend for multiplication algo {algo}")
@@ -351,8 +299,7 @@ def run_experiment(cfg) -> dict:
     if algo != MultiplicationAlgo.no_mult:
         fn, b_shape, backend_name, flops = make_backend(cfg, m, engine)
         # must mirror make_backend's dtype rule (quantized structures are
-        # built around bf16-sized B before quantization; an fp32 B here would
-        # double the resident tile the VMEM budget check modeled)
+        # built around a bf16 B before quantization)
         dtype = jnp.bfloat16 if cfg.dtype in ("bfloat16", "int8", "fp8") \
             else jnp.float32
         rng = np.random.default_rng(cfg.seed)
@@ -410,20 +357,17 @@ def run_experiment(cfg) -> dict:
         # end-to-end quantized error (A blocks + B both quantized) vs the
         # fp32 oracle on the SAME backend/structure/row order — the
         # matched-accuracy evidence the quantized CSV rows carry
-        # (VERDICT r2 #4; reference type-switch family,
-        # cuda_utilities.cpp:24-32)
+        # (reference type-switch family, cuda_utilities.cpp:24-32)
         import dataclasses as _dc
         import re as _re
 
         cfg32 = _dc.replace(cfg, dtype="float32", outfile="")
-        # csr_spmm_auto's cost model is dtype-aware, so the fp32 rebuild
-        # could pick a DIFFERENT family with a different B layout; pin the
-        # family the quantized run resolved to (mask -> --csr-impl fine)
+        # csr_spmm_auto's choice may depend on the dtype, so the fp32
+        # rebuild could pick a DIFFERENT family with a different B layout;
+        # pin the family the quantized run resolved to
         fam = _re.search(r"csr_auto_fine\[(\w+)\]", backend_name)
         if fam:
-            cfg32 = _dc.replace(
-                cfg32, csr_impl={"mask": "fine"}.get(fam.group(1),
-                                                     fam.group(1)))
+            cfg32 = _dc.replace(cfg32, csr_impl=fam.group(1))
         fn32, shape32, _, _ = make_backend(cfg32, m, engine)
         Bq = np.asarray(B, np.float32)
         # the contraction dim (K) must not shrink: computing the fp32

@@ -1,8 +1,8 @@
 """Config + CLI mirroring the reference's CLineReader (include/input.h:12-127).
 
 Same single-letter flags, same defaults, so the reference's sweep-script flag
-bundles (e.g. ``BCSR_reord = -F 1 -a 5 -M 6``) translate verbatim.  TPU-only
-knobs get long-form flags.
+bundles (e.g. ``BCSR_reord = -F 1 -a 5 -M 6``) translate verbatim.  This
+framework's own knobs get long-form flags.
 """
 from __future__ import annotations
 
@@ -37,12 +37,12 @@ class Config:
     b_cols: int = 1024              # -c
     warmup: int = 1                 # -w
     exp_repetitions: int = 5        # -x
-    n_streams: int = 4              # -S (schema compat; no CUDA streams on TPU)
+    n_streams: int = 4              # -S (schema compat; no stream knob here)
 
-    # TPU-native knobs
+    # framework knobs
     dtype: str = "float32"          # --dtype {float32,bfloat16,int8}
-    tile_n: int = 0                 # --tile-n (0 = auto)
-    inner_iters: int = 0            # --inner-iters (0 = auto-calibrated depth)
+    tile_n: int = 0                 # --tile-n (CSV schema only)
+    inner_iters: int = 0            # --inner-iters (calls per timed window)
     backend: str = "auto"           # --backend {auto,native,numpy} for blocking
     csr_impl: str = "auto"          # --csr-impl {auto,fine,dedup,dedup256,fell,bcoo} for -M 2
     autotune: bool = False          # --autotune: measure kernel candidates
@@ -52,7 +52,7 @@ class Config:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sparta_tpu",
-        description="TPU-native block-sparse SpMM experiments "
+        description="Block-sparse SpMM experiments "
         "(flags mirror the reference CLI)",
     )
     d = Config()
@@ -145,9 +145,9 @@ def parse_args(argv=None) -> Config:
 
 
 def main(argv=None):
-    from .bench.device import ensure_cpu_backend
+    from .runtime import setup_compile_cache
 
-    ensure_cpu_backend()
+    setup_compile_cache()
     from .bench.runner import run_experiment
 
     cfg = parse_args(argv)

@@ -1,6 +1,6 @@
 """Core enums, type aliases and constants for sparta_tpu.
 
-TPU-native re-design of the reference framework's primitive layer
+A re-design of the reference framework's primitive layer
 (reference: include/definitions.h). Numeric codes of the enums are kept
 compatible with the reference CLI so sweep configs translate 1:1.
 """
@@ -12,17 +12,10 @@ import numpy as np
 
 # Index / value dtypes.
 # The reference uses intT = long and DataT = float (include/definitions.h:8-9).
-# On TPU we keep indices int32 (SMEM-friendly, sufficient for < 2^31 nnz)
-# and values float32 host-side with bfloat16 on the MXU path.
+# Here indices are int32 (sufficient for < 2^31 nnz) and values float32
+# host-side, with bfloat16 storage on the device paths.
 INT = np.int32
 DATA = np.float32
-
-# MXU-native tile geometry (see pallas guide): 128x128 systolic array,
-# 8x128 VPU lanes.  Block sizes on the TPU path should be multiples of these.
-MXU_TILE = 128
-SUBLANE = 8
-LANE = 128
-
 
 class MatrixFormat(enum.IntEnum):
     """Input file formats (reference include/definitions.h:15)."""
@@ -64,7 +57,7 @@ class SimMeasure(enum.IntEnum):
 class MultiplicationAlgo(enum.IntEnum):
     """SpMM backends (reference include/definitions.h:19, ``-M`` flag).
 
-    The reference codes map onto TPU-native backends as follows:
+    The reference codes map onto this framework's backends as follows:
 
     ===== ============================== ===========================================
     code  reference backend              sparta_tpu backend
@@ -77,11 +70,11 @@ class MultiplicationAlgo(enum.IntEnum):
     5     cublas_vbr_fixed               (alias of 4; dead code in the reference)
     6     cublas_vbr_inverted (C=B.A)    VBR SpMM inverted operand order
     7     cublas_vbr_batched             VBR SpMM, per-diagonal batched XLA
-    8     cutlass_bellpack               Blocked-ELL SpMM, Pallas MXU kernel (flagship)
-    9     cutlass_gemm (dense)           dense matmul, Pallas MXU kernel
-    10    cutlas_vbr                     VBR SpMM, Pallas (bucketed)
-    11    cutlas_vbr_inverted            VBR SpMM inverted, Pallas
-    12    cutlas_vbr_batched             Blocked-ELL SpMM Pallas, batched-B variant
+    8     cutlass_bellpack               Blocked-ELL SpMM, plan_spmm (Triton kernel)
+    9     cutlass_gemm (dense)           dense matmul (as 1: cuBLAS via XLA)
+    10    cutlas_vbr                     VBR SpMM, blocked kernel (bucketed)
+    11    cutlas_vbr_inverted            VBR SpMM inverted, blocked kernel
+    12    cutlas_vbr_batched             Blocked-ELL SpMM, plan_spmm (as 8)
     ===== ============================== ===========================================
     """
 

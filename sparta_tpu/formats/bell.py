@@ -1,12 +1,12 @@
 """Blocked-ELLPACK: fixed-size block grid, rectangular (jit-friendly) index
 tensor padded to the longest block-row.
 
-TPU-native equivalent of the reference's cuSPARSE Blocked-ELL conversion
+The counterpart of the reference's cuSPARSE Blocked-ELL conversion
 (src/cuda/cuda_utilities.cpp:1656-1710): ``cols_idx`` padded with -1 like the
 reference's ellColInd; additionally ``nb_row`` stores the true per-row block
 counts so device kernels can bound their inner loops without scanning for the
 sentinel.  Values are [nbr, max_nb, bh, bw] row-major blocks — one gather +
-MXU matmul per (block-row, block) pair.
+matmul per (block-row, block) pair.
 """
 from __future__ import annotations
 

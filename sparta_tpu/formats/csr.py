@@ -1,6 +1,6 @@
 """CSR matrix container + I/O + permutation ops (host side, numpy).
 
-TPU-native re-design of the reference's jagged-pointer CSR
+A re-design of the reference's jagged-pointer CSR
 (reference: include/matrices.h:10-91, src/general/csr.cpp).  We use the
 standard 3-array CSR layout (indptr/indices/data) so every transform is a
 vectorized numpy pass instead of a per-row pointer walk, and conversion to

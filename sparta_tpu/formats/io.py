@@ -3,7 +3,7 @@
 Reference: groupings persisted one id per line (utilities.cpp:239-243,
 Matrix_Blocking.cpp:24-32) and re-loaded by Matrix_Analysis.cpp:10-32;
 reordered matrices exported as .el (reorder_matrix.cpp:45-46).  The npz
-checkpoint is the TPU-native upgrade: permutation/partition + BELL arrays
+checkpoint is the upgrade here: permutation/partition + BELL arrays
 cached per (matrix, config) so reordering cost is paid once per sweep.
 """
 from __future__ import annotations

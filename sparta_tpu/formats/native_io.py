@@ -3,14 +3,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "io.cc"
-_BUILD = _SRC.parent / "_build"
-_SO = _BUILD / "libsparta_io.so"
+from ..native_build import CSRC, build_native
+
+_SRC = CSRC / "io.cc"
+_FLAGS = ["-O3", "-std=c++17"]
 
 _lib = None
 _tried = False
@@ -24,14 +23,10 @@ def _load():
     if os.environ.get("SPARTA_TPU_NO_NATIVE"):
         return None
     try:
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            _BUILD.mkdir(exist_ok=True)
-            subprocess.run(
-                ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", str(_SRC),
-                 "-o", str(_SO)],
-                check=True, capture_output=True, timeout=300,
-            )
-        lib = ctypes.CDLL(str(_SO))
+        so = build_native(_SRC, "sparta_io", _FLAGS)
+        if so is None:
+            return None
+        lib = ctypes.CDLL(str(so))
         lib.sparta_count_edges.restype = ctypes.c_int64
         lib.sparta_count_edges.argtypes = [ctypes.c_char_p]
         lib.sparta_parse_edgelist.restype = ctypes.c_int64
@@ -41,8 +36,7 @@ def _load():
             ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
         ]
         _lib = lib
-    except (OSError, subprocess.CalledProcessError, FileNotFoundError,
-            subprocess.TimeoutExpired):
+    except OSError:
         _lib = None
     return _lib
 

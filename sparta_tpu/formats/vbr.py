@@ -1,10 +1,10 @@
 """VBR (Variable Block Row) format: variable-height row blocks x fixed-width
 column blocks, dense zero-padded blocks.
 
-TPU-native re-design of the reference VBR (include/matrices.h:93-122,
+A re-design of the reference VBR (include/matrices.h:93-122,
 src/general/vbr.cpp:135-237).  Construction is a vectorized scatter over the
 nnz entries instead of a per-block scan; blocks are stored contiguously with
-row-major entries inside each block (the natural layout for feeding MXU
+row-major entries inside each block (the natural layout for feeding matmul
 tiles — the reference stores in-block column-major for cuBLAS, vbr.cpp:224).
 """
 from __future__ import annotations

@@ -11,7 +11,7 @@ reordering (symmetric row+col permutation, ≡ CSR::reorder2d csr.cpp:111-120)
 so the adjacency densifies into 128-aligned blocks; Â is then stored in
 Blocked-ELL with the NATURAL fixed partition (no further per-multiply
 permutation), and every layer's Â @ H runs through the differentiable bell
-SpMM (Pallas forward on TPU, XLA backward — gradients flow into H, so the
+SpMM (Triton-kernel forward on the GPU, XLA backward — gradients flow into H, so the
 GCN trains end-to-end). Outputs are returned in the original node order.
 """
 from __future__ import annotations
@@ -153,12 +153,11 @@ class GCN:
         n_pad_rows = nbr * bh
         H = jnp.zeros((n_pad_rows, X.shape[1]), dtype=dtype)
         H = H.at[: self.n_nodes].set(X[self.perm].astype(dtype))
-        use_pallas = jax.default_backend() != "cpu"
         nlayers = len(params["layers"])
         for i, lp in enumerate(params["layers"]):
             # aggregate: Â @ H  (rows/cols share the same block partition)
             H = bell_spmm(self.cols_idx, self.nb_row, self.adj_vals,
-                          use_pallas, H)[:n_pad_rows]
+                          H)[:n_pad_rows]
             # transform
             H = H @ lp["w"].astype(dtype) + lp["b"].astype(dtype)
             if i < nlayers - 1:
@@ -191,7 +190,7 @@ def make_sharded_gcn_apply(model: GCN, mesh):
     """Row-sharded GCN forward over a device mesh: adjacency block-rows and
     node activations sharded along the mesh axis; each layer all-gathers H
     (every chip's rows can reference any column block of A_hat), multiplies
-    its resident block-rows locally on the MXU, and keeps the output rows
+    its resident block-rows locally, and keeps the output rows
     sharded. The dense feature transform stays local to the row shard.
 
     Returns ``apply(params, X) -> logits`` (original node order, replicated
@@ -222,7 +221,7 @@ def make_sharded_gcn_apply(model: GCN, mesh):
 
     def local_layer(ci, nb, av, h_full, w, b):
         # ci/nb/av: this shard's block-rows; h_full: replicated [n_pad, F]
-        out = bell_spmm(ci, nb, av, jax.default_backend() != "cpu", h_full)
+        out = bell_spmm(ci, nb, av, h_full)
         h = out @ w.astype(out.dtype) + b.astype(out.dtype)
         return h  # [n_pad/n_dev, F_out] row shard
 

@@ -2,7 +2,7 @@
 
 For graphs whose Blocked-ELL exceeds HBM, full-graph aggregation is
 impossible; the standard answer is neighbor sampling (GraphSAGE).  The
-TPU-native twist: sample at BLOCK granularity, not node granularity —
+The twist here: sample at BLOCK granularity, not node granularity —
 
 - a minibatch is a set of seed block-rows;
 - per layer, each block-row keeps at most ``fanout`` of its nonzero
@@ -181,10 +181,9 @@ def apply_minibatch(model: GCN, params, X_blocks: jax.Array,
     the real nodes)."""
     dtype = model.adj_vals.dtype
     H = X_blocks[batch.in_blocks].reshape(-1, X_blocks.shape[2]).astype(dtype)
-    use_pallas = jax.default_backend() != "cpu"
     nlayers = len(params["layers"])
     for i, (lb, lp) in enumerate(zip(batch.layers, params["layers"])):
-        H = bell_spmm(lb.cols_idx, lb.nb_row, lb.vals, use_pallas, H)
+        H = bell_spmm(lb.cols_idx, lb.nb_row, lb.vals, H)
         H = H @ lp["w"].astype(dtype) + lp["b"].astype(dtype)
         if i < nlayers - 1:
             H = jax.nn.relu(H)

@@ -27,7 +27,7 @@ def make_block_mask(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Random block-sparsity pattern: (cols_idx [nbr, max_nb], nb_row [nbr]).
 
-    Every block-row keeps the same number of blocks (balanced, MXU-friendly)
+    Every block-row keeps the same number of blocks (balanced, tile-friendly)
     = the 80-95%-sparse pruned-weight layout of the north star's config.
     """
     nbr, nbc = ceil_div(out_dim, block), ceil_div(in_dim, block)
@@ -66,7 +66,7 @@ class BlockSparseLinear:
         north star).  Returns (layer, params).
 
         per_row=True keeps the same number of blocks in every block-row
-        (balanced, MXU-friendly); False keeps the global top-k blocks.
+        (balanced, tile-friendly); False keeps the global top-k blocks.
         """
         W = np.asarray(W, dtype=np.float32)
         out_dim, in_dim = W.shape
@@ -128,12 +128,12 @@ class BlockSparseLinear:
         K = ceil_div(self.in_dim, self.block) * self.block
         if x2.shape[1] < K:
             x2 = jnp.pad(x2, ((0, 0), (0, K - x2.shape[1])))
-        # custom-VJP SpMM: Pallas forward on TPU, XLA backward; padding
-        # blocks get exactly-zero gradients so pruned weights stay pruned
-        use_pallas = jax.default_backend() != "cpu"
+        # custom-VJP SpMM: routed forward (the Triton kernel on the GPU),
+        # XLA backward; padding blocks get exactly-zero gradients so pruned
+        # weights stay pruned
         y = bell_spmm(
             self.cols_idx, self.nb_row, params["vals"].astype(x.dtype),
-            use_pallas, x2.T,
+            x2.T,
         ).T[:, : self.out_dim]
         if self.use_bias:
             y = y + params["bias"].astype(y.dtype)
@@ -147,22 +147,17 @@ class BlockSparseLinear:
 
     def freeze(self, params, batch_hint: int = 512, dtype=None,
                activation: str | None = None):
-        """Inference-optimized apply: pack the trained weights into the
-        padded compact layout and pick the fastest kernel (ops.plan_spmm;
-        on v5e the guard-free unrolled kernel when a B tile fits VMEM).
-        When the unrolled kernel applies, the bias add (and optional
-        ``activation='relu'``) is FUSED into the kernel's output stage —
-        separate XLA elementwise ops cost an extra HBM round trip of the
-        output because XLA cannot fuse into a custom call.
+        """Inference-optimized apply: pick the fastest path for the trained
+        weights (ops.plan_spmm).  When the blocked kernel wins, the bias
+        add (and optional ``activation='relu'``) runs in the kernel's
+        epilogue, so the output makes one trip to device memory instead of
+        three.
 
         Returns ``apply(x) -> y`` closed over the frozen weights. Training
         keeps the ELL layout (the custom VJP's gradients are shaped like
         ``params['vals']``); freeze once when weights stop changing."""
         from ..formats.bell import BELL
-        from ..ops import (
-            bell_spmm_pallas_compact_unrolled_epilogue,
-            plan_spmm,
-        )
+        from ..ops import BellDevice, bell_spmm_triton, plan_spmm
 
         if activation not in (None, "relu"):
             raise ValueError(f"unsupported activation {activation!r}")
@@ -180,43 +175,34 @@ class BlockSparseLinear:
         )
         plan_dtype = dtype or jnp.bfloat16
         plan = plan_spmm(bell, batch_hint, dtype=plan_dtype)
-        plan_tn, plan_chunk = plan.tn, plan.chunk
         bias = params.get("bias") if self.use_bias else None
         K = nbc * self.block
         out_dim = self.out_dim
 
         fused = None
-        if bias is not None and "unrolled" in plan.backend:
-            from ..ops import compact_from_host_padded
-
-            cdev = compact_from_host_padded(bell, plan_chunk, dtype=plan_dtype)
-            bias_pad = jnp.zeros((nbr * self.block,), dtype=jnp.float32)
-            bias_pad = bias_pad.at[:out_dim].set(bias.astype(jnp.float32))
-            # release the plan: its closure holds an identical compact
-            # device — keeping both doubles the frozen weights in HBM
+        if plan.backend == "bell_triton":
+            dev = BellDevice.from_host(bell, dtype=plan_dtype)
+            bias_pad = None
+            if bias is not None:
+                bias_pad = jnp.zeros((nbr * self.block,), jnp.float32)
+                bias_pad = bias_pad.at[:out_dim].set(bias.astype(jnp.float32))
+            # release the plan: its closure holds an identical device copy
             plan = None
 
-            def fused(xt, cdev=cdev, bias_pad=bias_pad):
-                return bell_spmm_pallas_compact_unrolled_epilogue(
-                    cdev, xt, bias_pad, tn=plan_tn, chunk=plan_chunk,
-                    relu=activation == "relu",
-                )
+            def fused(xt, dev=dev, bias_pad=bias_pad):
+                return bell_spmm_triton(dev, xt, bias=bias_pad,
+                                        relu=activation == "relu")
 
         def apply(x: jax.Array) -> jax.Array:
             lead = x.shape[:-1]
-            # cast to the plan dtype FIRST: plan_spmm sized its VMEM-resident
-            # B tile for this itemsize (an f32 activation through a bf16
-            # plan would double the tile and blow scoped VMEM)
             x2 = x.reshape(-1, x.shape[-1]).astype(plan_dtype)
             if x2.shape[1] < K:
                 x2 = jnp.pad(x2, ((0, 0), (0, K - x2.shape[1])))
-            n = x2.shape[0]
-            n_pad = -(-n // plan_tn) * plan_tn
-            xt = jnp.zeros((K, n_pad), dtype=x2.dtype).at[:, :n].set(x2.T)
+            xt = x2.T
             if fused is not None:
-                y = fused(xt)[:out_dim, :n].T
+                y = fused(xt)[:out_dim].T
             else:
-                y = plan(xt)[:out_dim, :n].T
+                y = plan(xt)[:out_dim].T
                 if bias is not None:
                     y = y + bias.astype(y.dtype)
                 if activation == "relu":

@@ -4,7 +4,7 @@ Each expert is a Blocked-ELL sparse FFN (up -> gelu -> down on the same
 custom-VJP SpMM the dense-FFN transformer uses); routing is Switch-style
 top-1 with a static capacity, dispatched by a stable argsort over expert
 assignments (N log N + two scatters/gathers, static shapes — the
-production-scale TPU layout; drop decisions are identical to the classic
+production-scale layout; drop decisions are identical to the classic
 cumsum-of-one-hot formulation because the sort is stable) plus the
 standard load-balancing auxiliary loss.
 
@@ -15,7 +15,7 @@ Two execution layouts:
 - ``apply_ep``   — explicit expert parallelism inside ``shard_map``:
                    tokens sharded on the mesh axis, experts sharded on the
                    same axis, dispatch/return via two ``lax.all_to_all``
-                   collectives riding ICI.  With ample capacity it equals
+                   collectives riding NVLink.  With ample capacity it equals
                    ``apply`` exactly (tested); under pressure each token
                    shard drops against its local capacity (standard
                    practice — capacity is per-shard at scale).
@@ -44,17 +44,14 @@ def _expert_ffn(up_cols, up_nb, up_vals, dn_cols, dn_nb, dn_vals,
                 x, d_model, d_ff, block):
     """One expert's up->gelu->down on [C, d_model] tokens (traced arrays
     everywhere so experts can be selected dynamically under shard_map)."""
-    use_pallas = jax.default_backend() != "cpu"
     Kd = -(-d_model // block) * block
     xp = jnp.pad(x, ((0, 0), (0, Kd - x.shape[1]))) \
         if x.shape[1] < Kd else x
-    h = bell_spmm(up_cols, up_nb, up_vals.astype(x.dtype), use_pallas,
-                  xp.T).T[:, :d_ff]
+    h = bell_spmm(up_cols, up_nb, up_vals.astype(x.dtype), xp.T).T[:, :d_ff]
     h = jax.nn.gelu(h)
     Kf = -(-d_ff // block) * block
     hp = jnp.pad(h, ((0, 0), (0, Kf - h.shape[1]))) if h.shape[1] < Kf else h
-    return bell_spmm(dn_cols, dn_nb, dn_vals.astype(x.dtype), use_pallas,
-                     hp.T).T[:, :d_model]
+    return bell_spmm(dn_cols, dn_nb, dn_vals.astype(x.dtype), hp.T).T[:, :d_model]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +124,7 @@ class BlockSparseMoE:
     # arrival-order rank within its expert (identical drop decisions to
     # the classic cumsum-of-one-hot formulation) without materializing the
     # O(N*E*C) dispatch tensor — N log N sort + two gathers/scatters, the
-    # production-scale TPU MoE layout.
+    # production-scale MoE layout.
     def _route(self, params, x, capacity: int):
         """x [N, d] -> (slot [N] int32 into the flat [E*C (+1 drop)] slab,
         keep [N] bool, gate_val [N], aux scalar)."""

@@ -4,7 +4,7 @@ Layers are split into S contiguous stages over a mesh axis ("pp"); the
 batch is split into M microbatches.  All devices run the same SPMD program
 of ``M + S - 1`` ticks inside one ``shard_map``: at tick t, stage s works
 on microbatch ``t - s`` (a `lax.scan` over ticks), and activations move to
-the next stage with one ``ppermute`` per tick — the TPU-native form of
+the next stage with one ``ppermute`` per tick — the SPMD form of
 point-to-point stage transfers.  The pipeline bubble is the standard
 ``(S-1)/(M+S-1)`` fraction.
 
@@ -76,21 +76,18 @@ def _one_layer(model: BlockSparseTransformer, x, lp, st):
         # _expert_ffn is the bias-free MoE variant
         from ..ops.autodiff import bell_spmm
 
-        use_pallas = jax.default_backend() != "cpu"
         xf = h.reshape(-1, cfg.d_model)
         Kd = -(-cfg.d_model // cfg.block) * cfg.block
         xp = jnp.pad(xf, ((0, 0), (0, Kd - xf.shape[1]))) \
             if xf.shape[1] < Kd else xf
         u = bell_spmm(st["up_cols"], st["up_nb"],
-                      lp["ffn_up"]["vals"].astype(h.dtype), use_pallas,
-                      xp.T).T[:, : cfg.d_ff]
+                      lp["ffn_up"]["vals"].astype(h.dtype), xp.T).T[:, : cfg.d_ff]
         u = jax.nn.gelu(u + lp["ffn_up"]["bias"].astype(u.dtype))
         Kf = -(-cfg.d_ff // cfg.block) * cfg.block
         up_ = jnp.pad(u, ((0, 0), (0, Kf - u.shape[1]))) \
             if u.shape[1] < Kf else u
         y = bell_spmm(st["dn_cols"], st["dn_nb"],
-                      lp["ffn_down"]["vals"].astype(h.dtype), use_pallas,
-                      up_.T).T[:, : cfg.d_model]
+                      lp["ffn_down"]["vals"].astype(h.dtype), up_.T).T[:, : cfg.d_model]
         y = y + lp["ffn_down"]["bias"].astype(y.dtype)
     else:
         y = _expert_ffn(st["up_cols"], st["up_nb"], lp["ffn_up"]["vals"],

@@ -53,7 +53,7 @@ def param_shardings(model: BlockSparseTransformer, params, mesh: Mesh):
     GSPMD then runs the per-head attention math tp-local and inserts ONE
     all-reduce after proj); MoE expert vals sharded over ep on the expert
     axis (expert parallelism — GSPMD partitions the dispatch/combine
-    einsums and routes expert slabs over ICI); everything else replicated."""
+    einsums and routes expert slabs between devices); everything else replicated."""
     has_tp = "tp" in mesh.shape
     has_ep = "ep" in mesh.shape
     tp = mesh.shape.get("tp", 1)

@@ -1,24 +1,5 @@
-from .bell_compact import (
-    BellCompactDevice,
-    bell_spmm_pallas_compact,
-    bell_spmm_pallas_compact_chunked,
-    bell_spmm_pallas_compact_gather,
-    bell_spmm_pallas_compact_ksplit,
-    bell_spmm_pallas_compact_multirow,
-    bell_spmm_pallas_compact_unrolled_multirow,
-    bell_spmm_pallas_compact_unrolled,
-    bell_spmm_pallas_compact_unrolled_epilogue,
-    compact_auto_chunk,
-    compact_from_host_padded,
-    compact_ksplit_from_host,
-    compact_optimal_chunk,
-)
-from .bell_pallas import (
-    bell_spmm_pallas,
-    bell_spmm_pallas_auto,
-    bell_spmm_pallas_bcache,
-)
 from .bell_xla import bell_spmm_xla, bell_spmm_xla_ba, bell_spmm_xla_unrolled
+from .blocked import bell_spmm_triton, blocked_spmm, spmm_route
 from .csr_spmm import (
     EllDevice,
     bcoo_spmm,
@@ -33,7 +14,6 @@ from .attention import (
     block_sparse_attention,
     build_block_mask,
 )
-from .attention_pallas import block_sparse_attention_pallas
 from .device import BellDevice, pad_b_for_bell
 from .fine import (
     DedupDevice,
@@ -47,26 +27,16 @@ from .fine import (
     mask_combine,
 )
 from .quant import (
-    FP8BellCompactDevice,
-    bell_spmm_fp8_unrolled,
-    quantize_b_fp8,
-    QBellCompactDevice,
     QBellDevice,
-    QBellRowColDevice,
-    bell_spmm_int8,
-    bell_spmm_int8_global,
-    bell_spmm_int8_rowcol,
-    bell_spmm_int8_unrolled,
-    quantize_b,
+    bell_spmm_quant,
     quantize_b_cols,
     quantize_b_global_cols,
 )
 from .select import SpmmPlan, plan_spmm
-from .vbr_pallas import VbrPallasDevice, vbr_spmm_pallas
+from .vbr_pallas import vbr_kernel_device, vbr_spmm_pallas
 from .vbr_xla import VbrDevice, vbr_spmm_xla, vbr_spmm_xla_ba
 
 __all__ = [
-    "BellCompactDevice",
     "BellDevice",
     "EllDevice",
     "VbrDevice",
@@ -74,31 +44,19 @@ __all__ = [
     "FellDevice",
     "FineDevice",
     "bcoo_spmm",
-    "bell_spmm_pallas",
-    "bell_spmm_pallas_auto",
-    "bell_spmm_pallas_bcache",
-    "bell_spmm_pallas_compact",
-    "bell_spmm_pallas_compact_chunked",
-    "bell_spmm_pallas_compact_gather",
-    "bell_spmm_pallas_compact_ksplit",
-    "bell_spmm_pallas_compact_multirow",
-    "bell_spmm_pallas_compact_unrolled_multirow",
-    "bell_spmm_pallas_compact_unrolled",
-    "bell_spmm_pallas_compact_unrolled_epilogue",
-    "compact_from_host_padded",
-    "compact_ksplit_from_host",
-    "compact_auto_chunk",
-    "compact_optimal_chunk",
+    "bell_spmm_triton",
+    "blocked_spmm",
+    "spmm_route",
     "bell_spmm_xla",
     "bell_spmm_xla_ba",
     "bell_spmm_xla_unrolled",
+    "csr_spmm_auto",
     "csr_to_bcoo",
     "dense_matmul",
     "ell_spmm",
     "BlockMask",
     "block_mask_from_csr",
     "block_sparse_attention",
-    "block_sparse_attention_pallas",
     "build_block_mask",
     "dedup_pair_from_csr",
     "dedup_spmm",
@@ -108,21 +66,12 @@ __all__ = [
     "mask_combine",
     "pad_b_for_bell",
     "plan_spmm",
-    "FP8BellCompactDevice",
-    "QBellCompactDevice",
     "QBellDevice",
-    "QBellRowColDevice",
-    "bell_spmm_fp8_unrolled",
-    "bell_spmm_int8",
-    "bell_spmm_int8_global",
-    "bell_spmm_int8_rowcol",
-    "bell_spmm_int8_unrolled",
-    "quantize_b",
+    "bell_spmm_quant",
     "quantize_b_cols",
     "quantize_b_global_cols",
-    "quantize_b_fp8",
     "SpmmPlan",
-    "VbrPallasDevice",
+    "vbr_kernel_device",
     "vbr_spmm_pallas",
     "vbr_spmm_xla",
     "vbr_spmm_xla_ba",

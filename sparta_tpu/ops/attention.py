@@ -3,8 +3,8 @@
 The reference stops at SpMM (its transformer story is "pruned weight
 matrices", BASELINE north star); this extends the same 128-block
 structure to the attention *pattern* — the other place block sparsity
-pays on TPU.  Scores are computed only for the mask's nonzero blocks
-(SDD: sampled dense-dense QKᵀ as batched MXU dots over the block list),
+pays.  Scores are computed only for the mask's nonzero blocks
+(SDD: sampled dense-dense QKᵀ as batched dots over the block list),
 softmax runs per query row across that block-row's blocks via segment
 reductions, and the probability blocks multiply V with the same
 batched-dot + segment-sum shape as the bell SpMM.
@@ -54,7 +54,7 @@ def build_block_mask(T_q: int, T_k: int, block: int = 128, *,
                      window: int | None = None, causal: bool = False,
                      global_blocks: int = 0) -> BlockMask:
     """Local-window (+ optional global key blocks) block pattern —
-    the Longformer/BigBird family of structures, at MXU tile granularity.
+    the Longformer/BigBird family of structures, at tile granularity.
 
     window=None -> every block (dense pattern, for testing);
     window=w    -> query tile i sees key tiles within w-1 tiles
@@ -129,8 +129,8 @@ def _mask_to_ell(mask: BlockMask):
     """ELL-ify the block list: every block-row padded to the max blocks
     per row (``wmax``).  Dead slots point at key tile 0 and are killed by
     an additive -inf.  Converts every per-row reduction downstream into a
-    dense reduce over the static wmax axis — no segment ops (the measured
-    51 GB/s scatter ceiling) anywhere in the pipeline."""
+    dense reduce over the static wmax axis — no segment ops anywhere in
+    the pipeline."""
     counts = np.zeros(mask.nbr, dtype=np.int64)
     for i in mask.br:
         counts[i] += 1
@@ -145,44 +145,20 @@ def _mask_to_ell(mask: BlockMask):
     return wmax, bc_ell, live
 
 
-@functools.lru_cache(maxsize=64)
-def _mask_to_ell_t(mask: BlockMask):
-    """Transposed ELL: for every KEY tile, the query tiles that touch it
-    (padded to ``umax``).  The flash backward's dk/dv kernel sweeps this
-    so each key tile's gradient accumulates in VMEM across grid-minor
-    steps — the row ELL would need scatter-adds into HBM instead."""
-    counts = np.zeros(mask.nbc, dtype=np.int64)
-    for j in mask.bc:
-        counts[j] += 1
-    umax = max(int(counts.max()) if counts.size else 0, 1)
-    br_ell = np.zeros((mask.nbc, umax), dtype=np.int32)
-    live = np.zeros((mask.nbc, umax), dtype=bool)
-    fill = np.zeros(mask.nbc, dtype=np.int64)
-    for i, j in zip(mask.br, mask.bc):
-        br_ell[j, fill[j]] = i
-        live[j, fill[j]] = True
-        fill[j] += 1
-    return umax, br_ell, live
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("nbr", "block", "causal", "with_lse"))
-def _bsa_core(q, k, v, bc_ell, live, nbr, block, causal, scale,
-              with_lse=False):
+@functools.partial(jax.jit, static_argnames=("nbr", "block", "causal"))
+def _bsa_core(q, k, v, bc_ell, live, nbr, block, causal, scale):
     """Single-head core: q [T_q, D], k/v [T_k, D] -> [T_q, D].
 
     ELL layout: bc_ell/live [nbr, wmax] give each query tile's key tiles
     (dead slots masked).  SDD scores, softmax and PV are all batched
-    dense ops over [nbr, wmax, bh, bw] — MXU dots plus regular reduces,
-    no gather/scatter beyond the tile gathers.  ``with_lse`` also
-    returns the per-row logsumexp [T_q] (consumed by the flash backward
-    in the hybrid path, attention_pallas.py)."""
+    dense ops over [nbr, wmax, bh, bw] — batched dots plus regular
+    reduces, no gather/scatter beyond the tile gathers."""
     bh = bw = block
     D = q.shape[-1]
     qt = q.reshape(nbr, bh, D)
     kt = k.reshape(-1, bw, D)[bc_ell]           # [nbr, wmax, bw, D]
     vt = v.reshape(-1, bw, D)[bc_ell]
-    # SDD: scores only for the pattern's blocks — batched MXU dots
+    # SDD: scores only for the pattern's blocks — batched dots
     s = jnp.einsum("rbd,rwcd->rwbc", qt, kt,
                    preferred_element_type=jnp.float32) * scale
     neg = jnp.asarray(-jnp.inf, s.dtype)
@@ -203,17 +179,12 @@ def _bsa_core(q, k, v, bc_ell, live, nbr, block, causal, scale,
     # PV: one batched matmul, reduced over the static wmax axis
     o = jnp.einsum("rwbc,rwcd->rbd", p.astype(v.dtype), vt,
                    preferred_element_type=jnp.float32)  # [nbr, bh, D]
-    out = o.reshape(nbr * bh, D).astype(q.dtype)
-    if with_lse:
-        lse = m + jnp.log(jnp.maximum(denom, 1e-30))     # [nbr, bh]
-        return out, lse.reshape(nbr * bh).astype(jnp.float32)
-    return out
+    return o.reshape(nbr * bh, D).astype(q.dtype)
 
 
 def block_sparse_attention(q: jax.Array, k: jax.Array, v: jax.Array,
                            mask: BlockMask,
-                           scale: float | None = None,
-                           impl: str = "auto") -> jax.Array:
+                           scale: float | None = None) -> jax.Array:
     """Attention over a static block pattern.
 
     q: [..., T_q, D], k/v: [..., T_k, D]; leading dims (batch, heads)
@@ -221,32 +192,14 @@ def block_sparse_attention(q: jax.Array, k: jax.Array, v: jax.Array,
     mask's blocks — compute and memory scale with mask.n_blocks, not
     T_q*T_k.
 
-    impl: "pallas" = fully fused v2 flash kernels (chunked wide-dot
-    grid) — the measured-best TRAINING config at every benched T on
-    v5e AND the fastest forward at T>=4k (results/attn2_probe.json,
-    r5c: fwd 1.9x XLA at T=4k, 1.4x at 8k; train step 1.3-2.0x the
-    old hybrid); "xla" = batched-einsum path (still the fastest pure
-    forward at T<=2k — serving-latency users at short context should
-    pass it explicitly); "hybrid" = XLA forward + flash backward
-    (superseded by "pallas" on measurement, kept for comparison);
-    "auto" = pallas on an accelerator backend, xla on CPU
-    (interpret-mode kernels are orders of magnitude slower than real
-    XLA on CPU)."""
+    Plain XLA on every backend: batched dots over the mask's blocks,
+    differentiable through ``jax.grad``.  Causal masking aligns query and
+    key index 0 (row i sees keys j <= i), for any T_q and T_k."""
     if q.shape[-2] != mask.nbr * mask.block:
         raise ValueError(f"T_q={q.shape[-2]} != mask {mask.nbr}x{mask.block}")
     if k.shape[-2] != mask.nbc * mask.block:
         raise ValueError(f"T_k={k.shape[-2]} != mask {mask.nbc}x{mask.block}")
     scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
-    if impl == "auto":
-        impl = "xla" if jax.default_backend() == "cpu" else "pallas"
-    if impl == "hybrid":
-        from .attention_pallas import block_sparse_attention_hybrid
-
-        return block_sparse_attention_hybrid(q, k, v, mask, scale)
-    if impl == "pallas":
-        from .attention_pallas import block_sparse_attention_pallas
-
-        return block_sparse_attention_pallas(q, k, v, mask, scale)
     _, bc_ell, live = _mask_to_ell(mask)
     bc_ell = jnp.asarray(bc_ell)
     live = jnp.asarray(live)

@@ -1,10 +1,11 @@
-"""Differentiable blocked SpMM: Pallas forward, XLA backward.
+"""Differentiable blocked SpMM: routed forward, XLA backward.
 
-The Pallas kernels have no VJP of their own; this wraps them with a
+The blocked kernel has no VJP of its own; this wraps the routed forward
+(``blocked_spmm``: the Triton kernel on the GPU, XLA elsewhere) with a
 custom_vjp whose backward pass reuses the gather/scatter structure:
 
   C = A @ B            (A blocked, values V[r,k] at block-cols J[r,k])
-  dV[r,k] = dC_r @ B_{J[r,k]}^T      (per-block outer product, batched MXU)
+  dV[r,k] = dC_r @ B_{J[r,k]}^T      (per-block outer product, batched dot)
   dB_{J[r,k]} += V[r,k]^T @ dC_r     (scatter-add over block columns)
 
 so the block-sparse transformer trains through the fast kernel.
@@ -16,25 +17,24 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from .bell_pallas import bell_spmm_pallas_auto
-from .bell_xla import bell_spmm_xla
+from .blocked import blocked_spmm
 from .device import BellDevice
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(3,))
-def bell_spmm(cols_idx, nb_row, vals, use_pallas: bool, B):
-    dev = BellDevice(cols_idx, nb_row, vals)
-    if use_pallas:
-        return bell_spmm_pallas_auto(dev, B)
-    return bell_spmm_xla(dev, B)
+@partial(jax.custom_vjp, nondiff_argnums=(4,))
+def bell_spmm(cols_idx, nb_row, vals, B, interpret: bool = False):
+    """C = A @ B for A in Blocked-ELL (cols_idx, nb_row, vals).
+    ``interpret`` runs the kernel in the Pallas interpreter (tests)."""
+    return blocked_spmm(BellDevice(cols_idx, nb_row, vals), B,
+                        interpret=interpret)
 
 
-def _fwd(cols_idx, nb_row, vals, use_pallas, B):
-    out = bell_spmm(cols_idx, nb_row, vals, use_pallas, B)
+def _fwd(cols_idx, nb_row, vals, B, interpret):
+    out = bell_spmm(cols_idx, nb_row, vals, B, interpret)
     return out, (cols_idx, nb_row, vals, B)
 
 
-def _bwd(use_pallas, res, dC):
+def _bwd(interpret, res, dC):
     cols_idx, nb_row, vals, B = res
     nbr, max_nb, bh, bw = vals.shape
     N = B.shape[1]

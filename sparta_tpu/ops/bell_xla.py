@@ -1,13 +1,13 @@
-"""Blocked-ELL SpMM, pure-XLA path (gather + batched MXU matmul).
+"""Blocked-ELL SpMM, pure-XLA path (gather + batched matmul).
 
-TPU-native equivalent of the reference's cuSPARSE Blocked-ELL backend
+The plain-XLA counterpart of the reference's cuSPARSE Blocked-ELL backend
 (cuda_utilities.cpp:1497-1653): instead of a library call, a gather of B row
-stripes by block-column index followed by a batched dot_general that XLA maps
-onto the MXU.  Correctness anchor for the Pallas kernel and a strong
-baseline in its own right.
+stripes by block-column index followed by a batched dot_general.  The path
+on every backend but the GPU, and the correctness anchor for the Triton
+kernel (ops/blocked.py).
 
-Padding entries (cols_idx == -1) carry zero values, so gathering row-stripe 0
-for them contributes nothing — no masking needed.
+Padding entries (cols_idx == -1) carry zero values and gather row-stripe 0;
+they are masked anyway so their gradients stay zero.
 """
 from __future__ import annotations
 
@@ -20,29 +20,46 @@ from .device import BellDevice
 
 
 @partial(jax.jit, static_argnames=("accum_dtype",))
-def bell_spmm_xla(bell: BellDevice, B: jax.Array, accum_dtype=jnp.float32) -> jax.Array:
+def bell_spmm_xla(bell: BellDevice, B: jax.Array, accum_dtype=jnp.float32,
+                  stripe_scale=None) -> jax.Array:
     """C[perm rows] = A_bell @ B.   B: [K, N] with K == nbc*bw.
 
     Loops over the block ordinal k with lax.scan so only one gathered
     [nbr, bw, N] stripe batch is live at a time (the full
-    [nbr, max_nb, bw, N] gather would not fit HBM at large N).
+    [nbr, max_nb, bw, N] gather would not fit device memory at large N).
+
+    Float operands return B's dtype.  ``accum_dtype=None`` returns the
+    accumulator itself, as the quantized callers want: int32 for int8
+    operands, float32 otherwise; fp8 operands are widened to bf16 (exactly)
+    as they are gathered.  ``stripe_scale`` [nbc, N] scales each block's
+    product by its B stripe's per-column dequant factor.
     """
     nbr, max_nb, bh, bw = bell.vals.shape
     N = B.shape[1]
+    vals = bell.vals
+    if vals.dtype.itemsize == 1 and not jnp.issubdtype(vals.dtype,
+                                                       jnp.integer):
+        vals, B = vals.astype(jnp.bfloat16), B.astype(jnp.bfloat16)
+    acc_dtype = accum_dtype or (
+        jnp.int32 if jnp.issubdtype(vals.dtype, jnp.integer)
+        and stripe_scale is None else jnp.float32)
     Bt = B.reshape(-1, bw, N)  # [nbc, bw, N]
     safe_idx = jnp.maximum(bell.cols_idx, 0)  # [nbr, max_nb]
     # mask padding entries: their stored values are zero, but masking also
     # keeps gradients w.r.t. padding values at zero under autodiff
-    valid = (bell.cols_idx >= 0).astype(bell.vals.dtype)
+    valid = bell.cols_idx >= 0
 
     def term(k):
         stripes = Bt[safe_idx[:, k]]  # [nbr, bw, N] gather
-        return jax.lax.dot_general(
-            bell.vals[:, k] * valid[:, k, None, None],
+        t = jax.lax.dot_general(
+            jnp.where(valid[:, k, None, None], vals[:, k], 0),
             stripes,
             dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=accum_dtype,
+            preferred_element_type=acc_dtype,
         )  # [nbr, bh, N]
+        if stripe_scale is not None:
+            t = t.astype(jnp.float32) * stripe_scale[safe_idx[:, k]][:, None]
+        return t
 
     def step(acc, k):
         return acc + term(k), None
@@ -51,7 +68,8 @@ def bell_spmm_xla(bell: BellDevice, B: jax.Array, accum_dtype=jnp.float32) -> ja
     # shard_map the terms are device-varying and a replicated zero carry
     # trips the varying-manual-axes check in the scan
     acc, _ = jax.lax.scan(step, term(0), jnp.arange(1, max_nb))
-    return acc.reshape(nbr * bh, N).astype(B.dtype)
+    acc = acc.reshape(nbr * bh, N)
+    return acc if accum_dtype is None else acc.astype(B.dtype)
 
 
 @partial(jax.jit, static_argnames=("accum_dtype",))

@@ -1,7 +1,7 @@
 """Device-side containers for blocked-sparse matrices.
 
 Host formats (sparta_tpu.formats) hold numpy; these hold jnp arrays laid out
-for the MXU path: values as [nbr, max_nb, bh, bw] tiles, indices int32.
+for the device paths: values as [nbr, max_nb, bh, bw] tiles, indices int32.
 """
 from __future__ import annotations
 

@@ -1,39 +1,23 @@
 """Fine-grained (non-blocked) sparse SpMM for matrices too sparse to block.
 
-The TPU-native answer to the reference's cuSPARSE CSR SpMM *kernel*
-(cusparse_gemm_custom, /root/reference/src/cuda/cuda_utilities.cpp:1251-1431)
-for power-law graphs and other low-fill patterns where 128x128 blocking pads
-100-1000x and the BCOO scatter path runs 3 orders of magnitude off roofline.
+The answer to the reference's cuSPARSE CSR SpMM kernel (cusparse_gemm_custom,
+cuda_utilities.cpp:1251-1431) for power-law graphs and other low-fill
+patterns where 128x128 blocking pads 100-1000x.  All three layouts are
+plain XLA; the GPU has a native scatter-add, so the row combine is a sorted
+``segment_sum`` rather than a hand-written kernel.
 
-Measured v5e primitive ceilings (scripts/gather_probe.py, fine_probe.py)
-that shape both designs here:
-
-  - XLA row gather B[idx] peaks at ~223 GB/s for rows <= 1 KB (bf16 N=512)
-    and CLIFFS to ~96 GB/s at 2 KB rows and ~83 at 4 KB -> gather in
-    512-column slabs, never whole-N;
-  - int8 gathers ~1.9x more elements/s at the same row bytes (188 GB/s at
-    N=1024) -> a quantized variant halves gather time;
-  - XLA scatter-add / segment_sum runs at ~51 GB/s -> never combine with a
-    scatter; per-row DMA and VPU dynamic_gather are not viable on this
-    toolchain (per-copy scalar cost ~ 1 KB of bandwidth; Mosaic rejects
-    non-square gathers).
-
-Two strategies:
-
-1. ``FineDevice`` + ``fine_spmm`` — the production path. Nonzeros stay in
-   CSR order, laid out so each ``tile_rows`` output tile owns a contiguous
-   128-aligned slot range (``tile_aligned_layout``).  Per 512-column slab:
-   one fused XLA gather+scale produces slot contributions, then a Pallas
-   MASK-MATMUL COMBINE reduces them: contributions stream sequentially
-   through VMEM in ``chunk``-slot blocks and a one-hot [R, C] mask built
-   on the fly from the slot-row ids reduces each block onto the output
-   tile with a single MXU matmul — no gather, no scatter, no per-element
-   scalar work anywhere in the combine.
-
-2. ``FellDevice`` + ``fell_spmm`` — pure-XLA fallback (no Pallas): rows are
-   split into width-W virtual rows (row splitting for power-law hubs), the
-   product is W fused full-row gathers summed, and virtual rows combine
-   with one sorted ``segment_sum`` over nnz/W rows.
+1. ``FineDevice`` + ``fine_spmm``: nonzeros in CSR order; one fused
+   gather-and-scale of B rows produces per-nonzero contributions, and a
+   sorted ``segment_sum`` over their row ids combines them.
+2. ``DedupDevice`` + ``dedup_spmm``: per ``tile_rows``-row output tile,
+   each distinct column is gathered once; a dense per-slot weight row W
+   folds the values and the slot->row scatter together.  Each tile's slots
+   are padded to a multiple of ``chunk``, so the combine is one batched dot
+   over [chunk, tile_rows] x [chunk, N] slot chunks followed by a sorted
+   ``segment_sum`` of the chunk partials onto their tiles.
+3. ``FellDevice`` + ``fell_spmm``: rows split into width-W virtual rows
+   (row splitting for power-law hubs); W fused full-row gathers summed,
+   then a sorted ``segment_sum`` over nnz/W virtual rows.
 """
 from __future__ import annotations
 
@@ -43,625 +27,121 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..definitions import to_device
 from ..formats.csr import CSR
 
-# measured v5e rates.  The gather rate is NOT a single constant: r4's
-# fine_probe2 measured 59.8 GB/s at S=256k on a 128 MB table where the
-# r2 grid (64 MB table) measured 223 — the rate depends on TABLE size as
-# well as index count (VERDICT r4 missing #2).  gather_bps() below
-# interpolates the full measured (rowbytes, table_MB, S) -> GB/s surface
-# from the r5 hardware grid (results/gather_probe2.json, in git);
-# GATHER_BPS / GATHER_BPS_LARGE remain as the legacy anchors for callers
-# without table-size context.
-GATHER_BPS = 223e9        # bf16 rows <= 1KB, S <= ~300k, table <= 64 MB
-GATHER_BPS_LARGE = 90e9   # large-S degradation (S ~ 1M measured 65-96)
-COMBINE_BPS = 400e9       # mask-combine streaming estimate (calibrated)
-
-# (rowbytes, table_MB, n_idx, GB/s) calibration points for B[idx],
-# measured on v5e hardware (results/gather_probe2.json, r5 session; the
-# bf16x256 diagnostic cells land in the rowbytes=512 class).  The
-# dominant axis is TABLE BYTES: a sharp cliff between 64 and 128 MB
-# (~220 -> ~55 GB/s at S<=256k) regardless of row width, plus an S=1M
-# descriptor-rate regime (~60-65 GB/s at 1 KB rows) that is FASTER than
-# small-S on big tables.  Row width matters inside the slow regime
-# (512 B rows move ~2/3 the bytes/s of 1 KB rows at 128 MB), hence the
-# per-rowbytes classes.
-GATHER_POINTS = (
-    # bf16 512-col slabs (1 KB rows) — the production fine/dedup gather
-    (1024, 32, 65_536, 253.0), (1024, 32, 262_144, 226.0),
-    (1024, 32, 1_048_576, 65.5),
-    (1024, 64, 65_536, 207.1), (1024, 64, 262_144, 223.1),
-    (1024, 64, 1_048_576, 65.0),
-    (1024, 128, 65_536, 56.0), (1024, 128, 262_144, 59.8),
-    (1024, 128, 1_048_576, 64.1),
-    (1024, 256, 65_536, 41.7), (1024, 256, 262_144, 54.8),
-    (1024, 256, 1_048_576, 62.8),
-    (1024, 512, 65_536, 27.7), (1024, 512, 262_144, 47.0),
-    (1024, 512, 1_048_576, 59.8),
-    # 512 B rows: int8 512-col slabs (the dedup_int8 gather) AND bf16
-    # 256-col slabs (the narrow-slab mitigation) — same regime, both
-    # measured (119-125 vs 127-132 GB/s at <= 64 MB)
-    (512, 32, 262_144, 122.1), (512, 32, 1_048_576, 124.9),
-    (512, 64, 262_144, 118.9), (512, 64, 1_048_576, 124.1),
-    (512, 128, 262_144, 36.7), (512, 128, 1_048_576, 40.2),
-    (512, 256, 262_144, 29.3), (512, 256, 1_048_576, 33.9),
-    (512, 32, 262_145, 129.9), (512, 32, 1_048_577, 131.9),  # bf16x256
-    (512, 64, 262_145, 127.3), (512, 64, 1_048_577, 131.4),  # bf16x256
-    # 256 B rows (bf16 128-col slabs, the K>128k mitigation)
-    (256, 64, 262_144, 110.0), (256, 64, 1_048_576, 115.2),
-)
-
-
-def gather_bps(n_idx: int, table_bytes: int | None = None,
-               rowbytes: int = 1024) -> float:
-    """Modeled B[idx] gather rate in BYTES/S of gathered output.
-
-    Interpolates the measured (table size, index count) surface in log2
-    space (inverse-squared-distance over the 4 nearest calibration
-    points of the nearest ``rowbytes`` class — robust to a scattered
-    grid and trivially re-seeded when scripts/gather_probe2.py refreshes
-    GATHER_POINTS).  ``table_bytes`` None keeps the legacy
-    slot-count-only fork."""
-    import math
-
-    if table_bytes is None:
-        return GATHER_BPS if n_idx <= 300_000 else GATHER_BPS_LARGE
-    cls = min((rb for rb, *_r in GATHER_POINTS),
-              key=lambda rb: abs(math.log2(rb) - math.log2(max(rowbytes, 1))))
-    x = math.log2(max(table_bytes, 1 << 20) / float(1 << 20))
-    y = math.log2(max(n_idx, 1024) / 1024.0)
-    scored = []
-    for rb, mb, s, g in GATHER_POINTS:
-        if rb != cls:
-            continue
-        d2 = (x - math.log2(mb)) ** 2 + (y - math.log2(s / 1024.0)) ** 2
-        if d2 < 1e-12:
-            return g * 1e9
-        scored.append((d2, g))
-    scored.sort()
-    num = den = 0.0
-    for d2, g in scored[:4]:
-        w = 1.0 / d2
-        num += w * g
-        den += w
-    return num / den * 1e9
-# FELL-specific rates, calibrated to the 9-point hardware grid in
-# results/fell_probe.json (3 graphs x w in {4,8,16}, r4): the fused
-# gather-multiply-add loop runs slower than the pure-gather microbench
-# (120 vs 223 GB/s small-S), while the sorted segment-sum streams near
-# memory bandwidth (270 GB/s — the old 51e9 made the model prefer wide W,
-# mis-ranking every measured graph; w4 wins on all three).  Max model
-# error on the grid: 27% (within the ±30% band autotune covers).
-FELL_GATHER_BPS = 120e9
-SEGSUM_BPS = 270e9
-FELL_CLIFF_SLOTS = 300_000
 WIDTHS = (4, 8, 16, 32, 64)
 
 
-# ---------------------------------------------------------------------------
-# shared layout helpers
-# ---------------------------------------------------------------------------
-
-def tile_aligned_layout(row_ptr: np.ndarray, tile_rows: int,
-                        align: int = 128, chunk: int = 2048):
-    """Slot layout for the mask-matmul combine: each ``tile_rows``-row output
-    tile's nonzeros occupy a contiguous region whose start is ``align``-
-    aligned (Mosaic requires provably tile-divisible dynamic DMA offsets),
-    padded with dead slots, plus ``chunk`` trailing safety slots for DMA
-    overrun.
-
-    Returns (tptr[ntiles+1] aligned region starts, new_pos[nnz] destination
-    of each CSR-ordered nonzero, total_slots).
-    """
-    n_rows = row_ptr.shape[0] - 1
-    ntiles = max(-(-n_rows // tile_rows), 1)
-    tstarts = row_ptr[0: n_rows: tile_rows].astype(np.int64)
-    tends = np.append(tstarts[1:], row_ptr[-1])
-    n_t = tends - tstarts
-    asz = (n_t + align - 1) // align * align
-    astart = np.zeros(ntiles + 1, dtype=np.int64)
-    np.cumsum(asz, out=astart[1:])
-    new_pos = np.repeat(astart[:-1] - tstarts, n_t) + np.arange(
-        int(row_ptr[-1]), dtype=np.int64)
-    total = int(astart[-1]) + chunk
-    return astart.astype(np.int32), new_pos, total
-
-
-# The r5 gather grid's dominant axis is TABLE bytes: <= 64 MB tables
-# gather at the fast row rate (~230 Mrows/s) at any row width, >= 128 MB
-# tables crawl (~58-72 Mrows/s).  Row width only scales bytes/row, so a
-# narrower slab that pulls the table under the cliff gathers the SAME
-# total bytes ~2x faster (the measured 512 B-row 64 MB cells run 119-125
-# GB/s where the 1 KB-row 128 MB cells run 56-64).
-SMALL_TABLE_BYTES = 64 << 20
-
-
-def _pick_slab(N: int, table_rows: int | None = None,
-               itemsize: int = 2) -> int:
-    """Largest slab width <= 512 dividing N (1 KB rows = 512 bf16 lanes,
-    the measured per-row sweet spot) — NARROWED to the widest slab whose
-    [table_rows, nt] gather table stays under the 64 MB rate cliff when
-    ``table_rows`` is given.  If no width fits (huge K), the widest slab
-    wins anyway (fewest gathers at the same slow per-row rate)."""
-    opts = [nt for nt in (512, 256, 128) if N % nt == 0]
-    if not opts:
-        raise ValueError(f"N={N} must be a multiple of 128")
-    if table_rows:
-        for nt in opts:
-            if table_rows * nt * itemsize <= SMALL_TABLE_BYTES:
-                return nt
-    return opts[0]
-
-
-# Large-S gather mitigation: when a gather's index count exceeds the
-# ~300k-row knee where the measured rate cliffs from 223 to ~90 GB/s,
-# split it into this many rows per piece (None = single whole gather).
-# Calibrated by scripts/fine_probe2.py cell A on real hardware; flip to
-# 1 << 18 if chunked pieces recover the small-S rate.  The wrappers pass
-# the current value into their jitted cores as a STATIC argument, so a
-# runtime flip retraces instead of being silently ignored by the cache.
-GATHER_CHUNK_ROWS: int | None = None
-
-
-def _take_rows(b: jax.Array, idx: jax.Array,
-               cs: int | None) -> jax.Array:
-    """b[idx], split into ``cs``-sized index pieces when the large-S
-    mitigation is on (each piece rides the small-S gather rate)."""
-    S = idx.shape[0]
-    if not cs or S <= cs:
-        return b[idx]
-    pieces = [b[jax.lax.slice_in_dim(idx, i, min(i + cs, S))]
-              for i in range(0, S, cs)]
-    return jnp.concatenate(pieces, axis=0)
-
-
-def _materialize_slab(bs: jax.Array, full_width: int) -> jax.Array:
-    """Force the slab CONTIGUOUS before it feeds a gather — a MEASURED
-    DEAD END, kept only for scripts/gather_slice_probe.py.
-
-    Post-mortem of the r5 narrow-slab experiment (the full numbers are
-    in BENCH_NOTES "narrow-slab negative result"): the gather microbench
-    (gather_probe2) says 64 MB contiguous tables gather 2x faster per
-    byte than 128 MB ones, so _pick_slab briefly narrowed slabs to stay
-    under the cliff.  In the REAL pipeline that regressed rmat17 dedup
-    41 -> 54 ms: first because XLA fuses the column slice into the
-    gather (rows stay strided across the full [K, N] operand — the
-    cliff keys on N, not nt), and — the deeper finding — because even
-    with this barrier forcing a genuinely contiguous [K, nt] buffer the
-    measured pipeline stayed at 53.7 ms, i.e. ISOLATED-table gather
-    rates do not transfer into the pipeline in either direction (the
-    strided-512 production gather actually runs at an effective ~100
-    GB/s on rmat17, FASTER than the 59.8 the contiguous microbench
-    predicts).  Production therefore keeps legacy 512 slabs; the cost
-    model keeps the (table, S) surface as a ~1.3x-pessimistic class
-    ranking, with measured autotune and plan_audit as the backstop."""
-    if bs.shape[1] == full_width and bs.dtype.itemsize >= 2:
-        return bs
-    return jax.lax.optimization_barrier(bs)
+def _quantize_cols(B: jax.Array):
+    """Per-column symmetric int8 quantization -> (int8 [K, N], f32 [1, N])."""
+    Bf = B.astype(jnp.float32)
+    amax = jnp.max(jnp.abs(Bf), axis=0, keepdims=True)
+    scale = jnp.where(amax > 0, amax, 1.0) / 127.0
+    return jnp.round(Bf / scale).astype(jnp.int8), scale
 
 
 # ---------------------------------------------------------------------------
-# mask-matmul combine (Pallas)
+# FineDevice: gather + sorted segment-sum combine
 # ---------------------------------------------------------------------------
 
-def _combine_kernel(tptr_ref, rows_hbm, *rest, R, C, nt, ns):
-    """Reduce CSR-ordered slot contributions onto one R-row output tile.
+def mask_combine(rows: jax.Array, contribs: jax.Array, M: int) -> jax.Array:
+    """Per-nonzero contributions [S, N] -> [M, N] row sums.  ``rows`` [S]
+    is sorted (CSR order); ids outside [0, M) are dropped."""
+    return jax.ops.segment_sum(contribs, rows, num_segments=M,
+                               indices_are_sorted=True)
 
-    Slots stream sequentially (the layout guarantees this tile's slots are
-    contiguous and 128-aligned); each C-slot block is reduced with ONE MXU
-    matmul against a one-hot mask built from the slot-row ids. Overrunning
-    reads hit the next tile's slots or dead padding — their row ids fall
-    outside [t*R, (t+1)*R) so the mask zeroes them.  ``ns`` contribution
-    slabs land side by side in one VMEM buffer, so the whole output width
-    costs ONE grid pass (same wide-N shape as the dedup combine)."""
-    contrib_hbms, rest = rest[:ns], rest[ns:]
-    out_ref, cbuf, rbuf, acc_ref, sems = rest
-    t = pl.program_id(0)
-    start = tptr_ref[t]
-    n = tptr_ref[t + 1] - start
-    nch = (n + C - 1) // C
-    acc_ref[...] = jnp.zeros_like(acc_ref)
-    base = jax.lax.broadcasted_iota(jnp.int32, (R, C), 0) + t * R
-
-    def body(c, _):
-        # the layout guarantees 128-aligned region starts and C is a
-        # multiple of 128; Mosaic cannot prove it for an SMEM-derived
-        # offset, and an unannotated dynamic offset into a (sub)lane-tiled
-        # dim is a hard compile error on real TPUs (r4 fine_bench)
-        off = pl.multiple_of(start + c * C, 128)
-        cps = [pltpu.make_async_copy(
-            contrib_hbms[k].at[pl.ds(off, C)],
-            cbuf.at[:, pl.ds(k * nt, nt)], sems.at[k]) for k in range(ns)]
-        rp = pltpu.make_async_copy(
-            rows_hbm.at[:, pl.ds(off, C)], rbuf, sems.at[ns])
-        for cp in cps:
-            cp.start()
-        rp.start()
-        for cp in cps:
-            cp.wait()
-        rp.wait()
-        mask = (rbuf[...] == base).astype(cbuf.dtype)
-        acc_ref[...] += jax.lax.dot(
-            mask, cbuf[...], preferred_element_type=jnp.float32)
-        return 0
-
-    jax.lax.fori_loop(0, nch, body, 0)
-    out_ref[...] = acc_ref[...].astype(out_ref.dtype)
-
-
-def _pick_combine_chunk(R, N, csize, budget=12 * 2**20):
-    """Largest combine chunk keeping VMEM residency under budget: the
-    [C, N] contribution buffer, the fp32 accumulator and the out block."""
-    for C in (2048, 1024, 512, 256):
-        if C * N * csize + R * N * (4 + csize) <= budget:
-            return C
-    return 128
-
-
-def _check_combine_tail(tptr, total_slots, C, what):
-    """The combine kernels' last chunk deliberately overruns past the last
-    tile into the layout's safety slots; a chunk larger than that tail
-    reads out of bounds.  Validated whenever ``tptr`` is concrete (the
-    jitted internal callers clamp C to the device's build-time chunk)."""
-    if isinstance(tptr, jax.core.Tracer):
-        return
-    tail = total_slots - int(np.asarray(tptr)[-1])
-    if tail < C:
-        raise ValueError(
-            f"{what}: chunk C={C} overruns the slot arrays — the layout "
-            f"carries only {tail} safety slots past the last tile; build "
-            f"with tile_aligned_layout(..., chunk>={C}) or pass C<={tail}")
-
-
-def mask_combine(tptr, rows2d, contribs, M, R=256, C=2048,
-                 interpret=False):
-    """CSR-ordered contributions -> [M, N] row sums.
-
-    ``contribs`` is one [Spad, nt] slab or a tuple of ``ns`` of them
-    (side-by-side lanes, one grid pass).  ``tptr``/``rows2d`` from
-    ``tile_aligned_layout`` (row ids -1 on dead slots); M must be a
-    multiple of R.  ``C`` must not exceed the safety-slot tail the layout
-    was built with (checked when called with concrete arrays)."""
-    cts = tuple(contribs) if isinstance(contribs, (tuple, list)) \
-        else (contribs,)
-    _check_combine_tail(tptr, cts[0].shape[0], C, "mask_combine")
-    return _mask_combine_jit(tptr, rows2d, cts, M, R, C, interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("M", "R", "C", "interpret"))
-def _mask_combine_jit(tptr, rows2d, cts, M, R, C, interpret):
-    ns = len(cts)
-    nt = cts[0].shape[1]
-    N = ns * nt
-    ntiles = M // R
-    kern = functools.partial(_combine_kernel, R=R, C=C, nt=nt, ns=ns)
-    return pl.pallas_call(
-        kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(ntiles,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * (1 + ns),
-            out_specs=pl.BlockSpec((R, N), lambda t, *_: (t, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((C, N), cts[0].dtype),
-                pltpu.VMEM((1, C), jnp.int32),
-                pltpu.VMEM((R, N), jnp.float32),
-                pltpu.SemaphoreType.DMA((1 + ns,)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((M, N), cts[0].dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * ntiles * R * C * N,
-            bytes_accessed=cts[0].shape[0] * N
-            * cts[0].dtype.itemsize + M * N * cts[0].dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret or jax.default_backend() == "cpu",
-    )(tptr, rows2d, *cts)
-
-
-# ---------------------------------------------------------------------------
-# FineDevice: slab gather + mask combine (production path)
-# ---------------------------------------------------------------------------
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class FineDevice:
-    """CSR-ordered nonzeros in the tile-aligned slot layout."""
+    """CSR-ordered nonzeros: column, value and (sorted) row of each."""
 
-    cols: jax.Array      # int32 [Spad] (0 on dead slots)
-    vals: jax.Array      # [Spad] (0 on dead slots)
-    rows2d: jax.Array    # int32 [1, Spad] (-1 on dead slots)
-    tptr: jax.Array      # int32 [ntiles+1]
-    rows: int            # true output row count (static)
-    tile_rows: int = 256  # static
-    chunk: int = 2048     # static
+    cols: jax.Array  # int32 [S]
+    vals: jax.Array  # [S]
+    rows_idx: jax.Array  # int32 [S], non-decreasing
+    rows: int  # static: output row count
 
     def tree_flatten(self):
-        return ((self.cols, self.vals, self.rows2d, self.tptr),
-                (self.rows, self.tile_rows, self.chunk))
+        return (self.cols, self.vals, self.rows_idx), self.rows
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(*children, rows=aux[0], tile_rows=aux[1], chunk=aux[2])
+        return cls(*children, rows=aux)
 
     @property
     def n_slots(self) -> int:
         return self.cols.shape[0]
 
-    @property
-    def padded_rows(self) -> int:
-        return (self.tptr.shape[0] - 1) * self.tile_rows
-
     @classmethod
-    def from_csr(cls, cmat: CSR, dtype=jnp.bfloat16, tile_rows: int = 256,
-                 chunk: int = 2048) -> "FineDevice":
-        rp = np.zeros(cmat.rows + 1, dtype=np.int64)
-        np.cumsum(cmat.row_nnz, out=rp[1:])
-        tptr, new_pos, total = tile_aligned_layout(rp, tile_rows, chunk=chunk)
-        cols = np.zeros(total, dtype=np.int32)
-        vals = np.zeros(total, dtype=np.float32)
-        rows = np.full(total, -1, dtype=np.int32)
-        cols[new_pos] = cmat.indices
-        vals[new_pos] = cmat.values()
-        rows[new_pos] = np.repeat(
-            np.arange(cmat.rows, dtype=np.int32), cmat.row_nnz)
-        return cls(
-            cols=jnp.asarray(cols),
-            vals=to_device(vals, dtype),
-            rows2d=jnp.asarray(rows[None, :]),
-            tptr=jnp.asarray(tptr),
-            rows=cmat.rows,
-            tile_rows=tile_rows,
-            chunk=chunk,
-        )
+    def from_csr(cls, cmat: CSR, dtype=jnp.bfloat16) -> "FineDevice":
+        rows = np.repeat(np.arange(cmat.rows, dtype=np.int32), cmat.row_nnz)
+        cols, vals = np.asarray(cmat.indices, np.int32), cmat.values()
+        if cmat.nnz == 0:  # one dead slot keeps every shape non-empty
+            rows, cols = np.full(1, cmat.rows, np.int32), np.zeros(1, np.int32)
+            vals = np.zeros(1, np.float32)
+        return cls(cols=jnp.asarray(cols), vals=to_device(vals, dtype),
+                   rows_idx=jnp.asarray(rows), rows=cmat.rows)
 
 
-@functools.partial(jax.jit, static_argnames=("b_int8", "gchunk"))
-def _fine_spmm(dev: FineDevice, B: jax.Array,
-               b_int8: bool = False,
-               gchunk: int | None = None) -> jax.Array:
-    # legacy 512 slabs: the narrow-slab + materialize mitigation is a
-    # MEASURED dead end (see _materialize_slab's docstring post-mortem)
-    nt = _pick_slab(B.shape[1])
-    Mpad = dev.padded_rows
-    contribs = []
-    for s in range(B.shape[1] // nt):
-        bs = jax.lax.slice_in_dim(B, s * nt, (s + 1) * nt, axis=1)
-        if b_int8:
-            # per-lane symmetric quantization halves the gather bytes (the
-            # dominant cost, same trick as dedup_spmm); the dequant scale
-            # fuses into the gather-consuming elementwise multiply
-            amax = jnp.max(jnp.abs(bs.astype(jnp.float32)), axis=0,
-                           keepdims=True)
-            scale = jnp.where(amax > 0, amax, 1.0) / 127.0
-            bq = jnp.round(bs.astype(jnp.float32) / scale).astype(jnp.int8)
-            g = _take_rows(bq, dev.cols, gchunk).astype(dev.vals.dtype) \
-                * scale.astype(dev.vals.dtype)
-        else:
-            # fused gather+scale: the only random access, at the slab
-            # sweet spot (strided slice measured FASTER than a forced
-            # contiguous copy — _materialize_slab post-mortem)
-            g = _take_rows(bs, dev.cols, gchunk).astype(dev.vals.dtype)
-        contribs.append(dev.vals[:, None] * g)
-    # one wide-N combine: all slabs in a single grid pass
-    C = min(dev.chunk, _pick_combine_chunk(
-        dev.tile_rows, B.shape[1], contribs[0].dtype.itemsize))
-    out = mask_combine(dev.tptr, dev.rows2d, tuple(contribs), Mpad,
-                       R=dev.tile_rows, C=C)
-    return out[: dev.rows].astype(B.dtype)
-
-
-def fine_spmm(dev: FineDevice, B: jax.Array,
-              b_int8: bool = False) -> jax.Array:
-    """C = A @ B for a FineDevice-packed A.  B [K, N] (N a multiple of
-    128); returns [rows, N].  ``b_int8`` gathers a per-lane int8
-    quantization of B (half the gather traffic, ~1e-3 relative error)."""
-    return _fine_spmm(dev, B, b_int8=b_int8, gchunk=GATHER_CHUNK_ROWS)
-
-
-def fine_model_s(nnz: int, n_rows: int, N: int, tile_rows: int = 256,
-                 chunk: int = 2048, itemsize: int = 2,
-                 k_rows: int | None = None) -> float:
-    """Modeled seconds per call (used by csr_spmm_auto's selector).
-
-    ``k_rows`` (= A's column count = the gather table's row count) keys
-    the table-size-dependent gather rate; None assumes square."""
-    ntiles = -(-n_rows // tile_rows)
-    slots = nnz + ntiles * 64  # alignment padding, ~align/2 per tile
-    # gathers run per 512-column slab (legacy width — the narrow-slab
-    # mitigation is a measured dead end, _materialize_slab post-mortem);
-    # the (table, S) surface is a CLASS ranking, ~1.3x pessimistic on
-    # big strided tables (plan_audit quantifies it per matrix)
-    gbps = gather_bps(slots, (k_rows or n_rows) * 512 * itemsize,
-                      rowbytes=512 * itemsize)
-    gather = slots * N * itemsize / gbps
-    combine = slots * N * itemsize / COMBINE_BPS \
-        + ntiles * max(-(-(nnz // max(ntiles, 1)) // chunk), 1) * 3e-6
-    return gather + combine
-
-
-# ---------------------------------------------------------------------------
-# DedupDevice: per-tile distinct-column gather + dense-W MXU combine
-# ---------------------------------------------------------------------------
-
-def _dedup_kernel(tptr_ref, w_hbm, *rest, R, C, nt, ns, scaled):
-    bg_hbms, rest = rest[:ns], rest[ns:]
-    if scaled:
-        scale_ref, out_ref, wbufs, bbufs, acc_ref, sems = rest
+@functools.partial(jax.jit, static_argnames=("b_int8",))
+def fine_spmm(dev: FineDevice, B: jax.Array, b_int8: bool = False):
+    """C = A @ B for a FineDevice-packed A.  B [K, N]; returns [rows, N].
+    ``b_int8`` gathers a per-column int8 quantization of B (half the gather
+    bytes, ~1e-3 relative error); the scale fuses into the multiply."""
+    if b_int8:
+        bq, scale = _quantize_cols(B)
+        g = bq[dev.cols].astype(dev.vals.dtype) * scale.astype(dev.vals.dtype)
     else:
-        out_ref, wbufs, bbufs, acc_ref, sems = rest
-        scale_ref = None
-    """C_tile[R, ns*nt] = sum_chunks W_chunk[C, R]^T @ Bg_chunk[C, ns*nt].
-
-    W folds the values AND the slot->row scatter into a dense operand, so
-    one MXU dot per chunk does multiply+scatter+reduce.  Chunks are
-    double-buffered: chunk c+1's DMA is in flight while c's dot runs.
-    Dead/padding slots carry zero W rows, so overrunning reads into the
-    next tile's region or the safety tail contribute nothing.
-
-    ``ns`` gathered-B slabs (each [Spad, nt], gathered at the <=1 KB-row
-    sweet spot) land side by side in one VMEM buffer so the whole output
-    width is produced by ONE grid pass — ns x fewer grid steps than
-    calling the kernel per slab (the per-step pipeline cost is what the
-    model says keeps the per-slab variant off 10x; fine_probe2)."""
-    t = pl.program_id(0)
-    start = tptr_ref[t]
-    n = tptr_ref[t + 1] - start
-    nch = (n + C - 1) // C
-    acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    def make_copies(c, slot):
-        # 128-aligned by the slot layout; annotated for Mosaic (see
-        # _combine_kernel)
-        off = pl.multiple_of(start + c * C, 128)
-        wc = pltpu.make_async_copy(
-            w_hbm.at[pl.ds(off, C)], wbufs.at[slot], sems.at[slot, 0])
-        bcs = [pltpu.make_async_copy(
-            bg_hbms[k].at[pl.ds(off, C)],
-            bbufs.at[slot, :, pl.ds(k * nt, nt)], sems.at[slot, 1 + k])
-            for k in range(ns)]
-        return [wc] + bcs
-
-    def start_copies(c, slot):
-        for cp in make_copies(c, slot):
-            cp.start()
-
-    @pl.when(nch > 0)
-    def _():
-        start_copies(0, 0)
-
-        def body(c, _):
-            slot = jax.lax.rem(c, 2)
-
-            @pl.when(c + 1 < nch)
-            def _():
-                start_copies(c + 1, 1 - slot)
-
-            # descriptors only — wait on the copy started a step earlier
-            for cp in make_copies(c, slot):
-                cp.wait()
-            # the tail chunk overruns into the NEXT tile's live slots
-            # (regions are 128-aligned, not C-aligned) — zero W beyond
-            # this tile's count so overrun slots contribute nothing
-            valid = n - c * C
-            keep = (jax.lax.broadcasted_iota(jnp.int32, (C, R), 0)
-                    < valid).astype(wbufs.dtype)
-            bop = bbufs[slot]
-            if bop.dtype != wbufs.dtype:  # int8-gathered B: exact in bf16
-                bop = bop.astype(wbufs.dtype)
-            acc_ref[...] += jax.lax.dot_general(
-                wbufs[slot] * keep, bop,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            return 0
-
-        jax.lax.fori_loop(0, nch, body, 0)
-    acc = acc_ref[...]
-    if scaled:
-        acc = acc * scale_ref[...].astype(jnp.float32)
-    out_ref[...] = acc.astype(out_ref.dtype)
+        g = B[dev.cols].astype(dev.vals.dtype)
+    contrib = (dev.vals[:, None] * g).astype(jnp.float32)
+    return mask_combine(dev.rows_idx, contrib, dev.rows).astype(B.dtype)
 
 
-def _pick_chunk(R, N, wsize, bsize, budget=12 * 2**20):
-    """Largest chunk keeping the kernel's VMEM residency under budget:
-    2 slots of [C, R] W + [C, N] B, the fp32 accumulator, and the
-    pipelined output block."""
-    for C in (2048, 1024, 512, 256):
-        if 2 * C * (R * wsize + N * bsize) + R * N * (4 + wsize) <= budget:
-            return C
-    return 128
+# ---------------------------------------------------------------------------
+# DedupDevice: per-tile distinct-column gather + batched-dot combine
+# ---------------------------------------------------------------------------
 
+def dedup_combine(chunk_tile: jax.Array, W: jax.Array, Bg: jax.Array,
+                  M: int, R: int, C: int, scale=None) -> jax.Array:
+    """[S, R] weights x gathered B rows [S, N] -> [M, N] row sums.
 
-def dedup_combine(tptr, W, Bg, M, R=128, C=2048, interpret=False,
-                  scale=None):
-    """[Spad, R] weights x gathered B rows -> [M, N] row sums.
-
-    ``Bg`` is one [Spad, nt] gathered slab or a tuple of ``ns`` of them
-    (each gathered separately at the <=1 KB-row sweet spot); the kernel
-    consumes ALL slabs in one grid pass over the tiles, so N=ns*nt output
-    columns cost one set of grid steps instead of ns.
-
-    With ``scale`` (a [1, N] per-lane dequant factor) Bg may be int8:
-    values convert exactly to the W dtype for the dot and the fp32
-    accumulator is rescaled in the epilogue.  ``C`` must not exceed the
-    safety-slot tail the layout was built with (checked when called with
-    concrete arrays)."""
-    bgs = tuple(Bg) if isinstance(Bg, (tuple, list)) else (Bg,)
-    _check_combine_tail(tptr, W.shape[0], C, "dedup_combine")
-    return _dedup_combine_jit(tptr, W, bgs, M, R, C, interpret, scale)
-
-
-@functools.partial(jax.jit, static_argnames=("M", "R", "C", "interpret"))
-def _dedup_combine_jit(tptr, W, bgs, M, R, C, interpret, scale):
-    ns = len(bgs)
-    nt = bgs[0].shape[1]
-    N = ns * nt
-    ntiles = M // R
-    scaled = scale is not None
-    kern = functools.partial(_dedup_kernel, R=R, C=C, nt=nt, ns=ns,
-                             scaled=scaled)
-    in_specs = [pl.BlockSpec(memory_space=pl.ANY)] * (1 + ns)
-    operands = [tptr, W, *bgs]
-    if scaled:
-        in_specs.append(pl.BlockSpec((1, N), lambda t, *_: (0, 0)))
-        operands.append(scale)
-    return pl.pallas_call(
-        kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(ntiles,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((R, N), lambda t, *_: (t, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((2, C, R), W.dtype),
-                pltpu.VMEM((2, C, N), bgs[0].dtype),
-                pltpu.VMEM((R, N), jnp.float32),
-                pltpu.SemaphoreType.DMA((2, 1 + ns)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((M, N), W.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * W.shape[0] * R * N,
-            bytes_accessed=W.shape[0] * (R * W.dtype.itemsize
-                                         + N * bgs[0].dtype.itemsize)
-            + M * N * bgs[0].dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret or jax.default_backend() == "cpu",
-    )(*operands)
+    S is a multiple of ``C``; slot chunk c belongs to output tile
+    ``chunk_tile[c]`` (non-decreasing).  One batched dot gives each chunk's
+    [R, N] partial; a sorted segment-sum adds the partials of each tile.
+    ``scale`` [1, N] dequantizes an int8-gathered ``Bg`` at the end."""
+    nch = W.shape[0] // C
+    N = Bg.shape[1]
+    part = jnp.einsum("scr,scn->srn", W.reshape(nch, C, R),
+                      Bg.astype(W.dtype).reshape(nch, C, N),
+                      preferred_element_type=jnp.float32)
+    out = jax.ops.segment_sum(part, chunk_tile, num_segments=M // R,
+                              indices_are_sorted=True).reshape(M, N)
+    return out if scale is None else out * scale
 
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class DedupDevice:
-    """Distinct (tile, column) pairs in the tile-aligned slot layout, with
-    a dense per-slot weight vector over the tile's R rows.
+    """Distinct (tile, column) pairs, each tile's slots padded to a
+    ``chunk`` multiple, with a dense per-slot weight row over the tile's R
+    rows.
 
     On power-law graphs 30-50% of nonzeros share a (tile, column) pair
-    with another nonzero (hub columns); deduping cuts the gather - the
-    dominant cost - by exactly that fraction, and the W matmul replaces
-    the value multiply AND the row combine."""
+    with another nonzero (hub columns); deduping cuts the gather by that
+    fraction, and the W dot replaces the value multiply and the row
+    combine."""
 
-    gidx: jax.Array     # int32 [Spad] column of each slot (0 on dead)
-    W: jax.Array        # [Spad, R] weights (0 on dead slots)
-    tptr: jax.Array     # int32 [ntiles+1]
-    rows: int           # static: true output row count
+    gidx: jax.Array        # int32 [S] column of each slot (0 on dead)
+    W: jax.Array           # [S, R] weights (0 on dead slots)
+    chunk_tile: jax.Array  # int32 [S // chunk] owning tile of each chunk
+    rows: int              # static: true output row count
     tile_rows: int = 128
-    chunk: int = 2048
+    chunk: int = 256
 
     def tree_flatten(self):
-        return ((self.gidx, self.W, self.tptr),
+        return ((self.gidx, self.W, self.chunk_tile),
                 (self.rows, self.tile_rows, self.chunk))
 
     @classmethod
@@ -674,82 +154,61 @@ class DedupDevice:
 
     @property
     def padded_rows(self) -> int:
-        return (self.tptr.shape[0] - 1) * self.tile_rows
+        return -(-self.rows // self.tile_rows) * self.tile_rows
 
     @classmethod
     def from_csr(cls, cmat: CSR, dtype=jnp.bfloat16, tile_rows: int = 128,
-                 chunk: int = 2048) -> "DedupDevice":
+                 chunk: int = 256) -> "DedupDevice":
         R = tile_rows
         rows = np.repeat(np.arange(cmat.rows, dtype=np.int64), cmat.row_nnz)
         key = (rows // R) * np.int64(cmat.cols) + cmat.indices
         uniq, inv = np.unique(key, return_inverse=True)
-        u_tile = (uniq // cmat.cols).astype(np.int64)
+        u_tile = (uniq // max(cmat.cols, 1)).astype(np.int64)
         ntiles = max(-(-cmat.rows // R), 1)
-        uptr = np.zeros(ntiles + 1, dtype=np.int64)
-        np.cumsum(np.bincount(u_tile, minlength=ntiles), out=uptr[1:])
-        tptr, new_pos, total = tile_aligned_layout(
-            uptr, tile_rows=1, chunk=chunk)
+        per_tile = np.bincount(u_tile, minlength=ntiles)
+        nchunks = np.maximum(-(-per_tile // chunk), 1)  # >= 1 chunk per tile
+        start = np.zeros(ntiles + 1, dtype=np.int64)
+        np.cumsum(nchunks * chunk, out=start[1:])
+        first = np.zeros(ntiles + 1, dtype=np.int64)
+        np.cumsum(per_tile, out=first[1:])
+        pos = start[u_tile] + np.arange(uniq.size) - first[u_tile]
+        total = int(start[-1])
         gidx = np.zeros(total, dtype=np.int32)
-        gidx[new_pos] = (uniq % cmat.cols).astype(np.int32)
+        gidx[pos] = (uniq % max(cmat.cols, 1)).astype(np.int32)
         W = np.zeros((total, R), dtype=np.float32)
-        np.add.at(W, (new_pos[inv], rows % R), cmat.values())
+        np.add.at(W, (pos[inv], rows % R), cmat.values())
         return cls(
             gidx=jnp.asarray(gidx),
-            # upload f32 and convert on device: numpy's elementwise
-            # bf16 cast runs ~90 ns/elem and dominated ingest (10 s on a
-            # 1M-nnz graph); the XLA convert is ~free
+            # upload f32 and convert on device: numpy's elementwise bf16
+            # cast is slow on large W
             W=jnp.asarray(W).astype(dtype),
-            tptr=jnp.asarray(tptr),
+            chunk_tile=jnp.asarray(np.repeat(
+                np.arange(ntiles, dtype=np.int32), nchunks)),
             rows=cmat.rows,
             tile_rows=R,
             chunk=chunk,
         )
 
 
-@functools.partial(jax.jit, static_argnames=("b_int8", "gchunk"))
-def _dedup_spmm(dev: DedupDevice, B: jax.Array,
-                b_int8: bool = False,
-                gchunk: int | None = None) -> jax.Array:
-    # legacy 512 slabs (see _materialize_slab's post-mortem)
-    nt = _pick_slab(B.shape[1])
-    Mpad = dev.padded_rows
-    bgs, scales = [], []
-    for s in range(B.shape[1] // nt):
-        bs = jax.lax.slice_in_dim(B, s * nt, (s + 1) * nt, axis=1)
-        if b_int8:
-            # per-lane symmetric quantization halves the gather bytes —
-            # the dominant cost; the kernel dequantizes in the epilogue
-            amax = jnp.max(jnp.abs(bs.astype(jnp.float32)), axis=0,
-                           keepdims=True)
-            scale = jnp.where(amax > 0, amax, 1.0) / 127.0
-            bq = jnp.round(bs.astype(jnp.float32) / scale).astype(jnp.int8)
-            bgs.append(_take_rows(bq, dev.gidx, gchunk))
-            scales.append(scale)
-        else:
-            bgs.append(_take_rows(bs, dev.gidx, gchunk).astype(
-                dev.W.dtype))  # distinct rows
-    scale = jnp.concatenate(scales, axis=1) if b_int8 else None
-    # one wide-N combine call: all slabs in a single grid pass, chunk
-    # sized down only as far as the VMEM budget requires
-    C = min(dev.chunk, _pick_chunk(dev.tile_rows, B.shape[1],
-                                   dev.W.dtype.itemsize,
-                                   bgs[0].dtype.itemsize))
-    out = dedup_combine(dev.tptr, dev.W, tuple(bgs), Mpad,
-                        R=dev.tile_rows, C=C, scale=scale)
+@functools.partial(jax.jit, static_argnames=("b_int8",))
+def dedup_spmm(dev: DedupDevice, B: jax.Array,
+               b_int8: bool = False) -> jax.Array:
+    """C = A @ B for a DedupDevice-packed A.  B [K, N]; returns [rows, N].
+    ``b_int8`` gathers a per-column int8 quantization of B (half the gather
+    bytes, ~1e-3 relative error), dequantized after the combine."""
+    scale = None
+    if b_int8:
+        bq, scale = _quantize_cols(B)
+        bg = bq[dev.gidx]
+    else:
+        bg = B[dev.gidx].astype(dev.W.dtype)  # distinct rows only
+    out = dedup_combine(dev.chunk_tile, dev.W, bg, dev.padded_rows,
+                        R=dev.tile_rows, C=dev.chunk, scale=scale)
     return out[: dev.rows].astype(B.dtype)
 
 
-def dedup_spmm(dev: DedupDevice, B: jax.Array,
-               b_int8: bool = False) -> jax.Array:
-    """C = A @ B for a DedupDevice-packed A.  B [K, N] (N a multiple of
-    128); returns [rows, N].  ``b_int8`` gathers a per-lane int8
-    quantization of B (half the gather traffic, ~1e-3 relative error)."""
-    return _dedup_spmm(dev, B, b_int8=b_int8,
-                       gchunk=GATHER_CHUNK_ROWS)
-
-
 def dedup_pair_from_csr(cmat: CSR, dtype=jnp.bfloat16, tile_rows: int = 128,
-                        chunk: int = 2048):
+                        chunk: int = 256):
     """(forward, transpose) DedupDevice pair for a fixed sparse operand —
     the training-time packing: C = A @ B forward, dB = A^T @ dC backward."""
     fwd = DedupDevice.from_csr(cmat, dtype=dtype, tile_rows=tile_rows,
@@ -765,48 +224,28 @@ def dedup_pair_from_csr(cmat: CSR, dtype=jnp.bfloat16, tile_rows: int = 128,
 @jax.custom_vjp
 def dedup_spmm_ad(dev: DedupDevice, devT: DedupDevice,
                   B: jax.Array) -> jax.Array:
-    """Differentiable C = A @ B through the dedup kernel (gradient flows
-    to B only; the sparse operand is static structure, as in a GCN
-    adjacency).  ``devT`` packs A^T so the backward pass rides the same
-    MXU combine: dB = A^T @ dC."""
-    return _dedup_spmm(dev, B, gchunk=GATHER_CHUNK_ROWS)
+    """Differentiable C = A @ B through the dedup path (gradient flows to B
+    only; the sparse operand is static structure, as in a GCN adjacency).
+    ``devT`` packs A^T so the backward pass is the same product:
+    dB = A^T @ dC."""
+    return dedup_spmm(dev, B)
 
 
 def _dedup_ad_fwd(dev, devT, B):
     # zero-size token carries B's dtype through the residuals
-    return _dedup_spmm(dev, B), (devT, jnp.zeros((0,), B.dtype))
+    return dedup_spmm(dev, B), (devT, jnp.zeros((0,), B.dtype))
 
 
 def _dedup_ad_bwd(res, dC):
     devT, tok = res
-    return None, None, _dedup_spmm(devT, dC.astype(tok.dtype))
+    return None, None, dedup_spmm(devT, dC.astype(tok.dtype))
 
 
 dedup_spmm_ad.defvjp(_dedup_ad_fwd, _dedup_ad_bwd)
 
 
-def dedup_model_s(n_uniq: int, n_rows: int, N: int, tile_rows: int = 128,
-                  chunk: int = 2048, itemsize: int = 2,
-                  k_rows: int | None = None) -> float:
-    """Modeled seconds per call from the distinct-pair count (host-side:
-    ``np.unique((rows // R) * K + cols).size``).  ``k_rows`` keys the
-    table-size-dependent gather rate (see gather_bps)."""
-    ntiles = -(-n_rows // tile_rows)
-    slots = n_uniq + ntiles * 64
-    # legacy 512-column slabs (see fine_model_s / _materialize_slab)
-    gbps = gather_bps(slots, (k_rows or n_rows) * 512 * itemsize,
-                      rowbytes=512 * itemsize)
-    gather = slots * N * itemsize / gbps
-    # gathered rows round-trip HBM (gather write + kernel read) and the
-    # kernel streams W alongside; dots hide under the double-buffered DMA
-    stream = slots * N * (itemsize + 2) / 819e9 \
-        + slots * tile_rows * itemsize / 819e9
-    # wide-N combine: ONE grid pass regardless of the slab count
-    return gather + stream + ntiles * 2e-6
-
-
 # ---------------------------------------------------------------------------
-# FellDevice: width-W virtual-row ELL (pure-XLA fallback)
+# FellDevice: width-W virtual-row ELL
 # ---------------------------------------------------------------------------
 
 def fell_slots(row_nnz: np.ndarray, w: int) -> tuple[int, int]:
@@ -817,19 +256,10 @@ def fell_slots(row_nnz: np.ndarray, w: int) -> tuple[int, int]:
     return n_virt, n_virt * w
 
 
-def choose_width(row_nnz: np.ndarray, itemsize: int = 2) -> int:
-    """Pick W minimizing modeled gather + combine time per output column
-    (both model terms scale linearly in the operand width, so the argmin
-    is width-independent — the former n_cols parameter was dead weight
-    that accumulated K-vs-N confusion across call sites)."""
-    best, best_w = float("inf"), WIDTHS[0]
-    for w in WIDTHS:
-        n_virt, slots = fell_slots(row_nnz, w)
-        g = FELL_GATHER_BPS if slots <= FELL_CLIFF_SLOTS else GATHER_BPS_LARGE
-        t = slots * itemsize / g + n_virt * 8 / SEGSUM_BPS
-        if t < best:
-            best, best_w = t, w
-    return best_w
+def choose_width(row_nnz: np.ndarray) -> int:
+    """The W with the least work: padded gather slots plus the virtual rows
+    the segment-sum combines (a count of operations, not a device rate)."""
+    return min(WIDTHS, key=lambda w: sum(fell_slots(row_nnz, w)))
 
 
 @jax.tree_util.register_pytree_node_class
@@ -861,7 +291,7 @@ class FellDevice:
                  dtype=jnp.float32) -> "FellDevice":
         """Vectorized build — no per-row python loops."""
         L = cmat.row_nnz.astype(np.int64)
-        w = width or choose_width(L, jnp.dtype(dtype).itemsize)
+        w = width or choose_width(L)
         nseg = -(-L // w)
         n_virt = max(int(nseg.sum()), 1)
         cols = np.zeros((n_virt, w), dtype=np.int32)
@@ -886,40 +316,25 @@ class FellDevice:
 @functools.partial(jax.jit, static_argnames=("rows",))
 def _fell_spmm(cols, vals, vr_rows, rows, B):
     w = cols.shape[1]
-    nt = _pick_slab(B.shape[1]) if B.shape[1] % 128 == 0 else B.shape[1]
-    outs = []
-    for s in range(max(B.shape[1] // nt, 1)):
-        bs = jax.lax.slice_in_dim(B, s * nt, (s + 1) * nt, axis=1) \
-            if B.shape[1] % 128 == 0 else B
-        # W fused gather-multiply-adds: each step gathers full slab rows —
-        # XLA fuses into one loop, no [n_virt, W, nt] intermediate.  Each
-        # term multiplies in the storage dtype but ACCUMULATES in fp32:
-        # W-deep bf16 adds plus a bf16 segment-sum measured 6e-2 relative
-        # error on power-law graphs — over the 1e-2 matched-accuracy bar.
-        def term(i):
-            return (vals[:, i: i + 1]
-                    * bs[cols[:, i]].astype(vals.dtype)).astype(jnp.float32)
 
-        acc = term(0)
-        for i in range(1, w):
-            acc += term(i)
-        # sorted segment-sum: n_virt ~= nnz/W rows — W x cheaper than the
-        # per-nonzero scatter that sinks the BCOO path
-        outs.append(jax.ops.segment_sum(
-            acc, vr_rows, num_segments=rows, indices_are_sorted=True))
-    out = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
+    # W fused gather-multiply-adds: each step gathers full rows of B and XLA
+    # fuses them into one loop, no [n_virt, W, N] intermediate.  Each term
+    # multiplies in the storage dtype but ACCUMULATES in fp32: W-deep bf16
+    # adds plus a bf16 segment-sum exceed the 1e-2 matched-accuracy bar on
+    # power-law graphs.
+    def term(i):
+        return (vals[:, i: i + 1]
+                * B[cols[:, i]].astype(vals.dtype)).astype(jnp.float32)
+
+    acc = term(0)
+    for i in range(1, w):
+        acc += term(i)
+    # sorted segment-sum over n_virt ~= nnz/W rows
+    out = jax.ops.segment_sum(acc, vr_rows, num_segments=rows,
+                              indices_are_sorted=True)
     return out.astype(B.dtype)
 
 
 def fell_spmm(dev: FellDevice, B: jax.Array) -> jax.Array:
     """C = A @ B for a FELL-packed A. B is [K, N]; returns [rows, N]."""
     return _fell_spmm(dev.cols, dev.vals, dev.vr_rows, dev.rows, B)
-
-
-def fell_model_s(row_nnz: np.ndarray, w: int, n_cols: int,
-                 itemsize: int = 2) -> float:
-    """Modeled seconds per call (shared with csr_spmm_auto's selector)."""
-    n_virt, slots = fell_slots(row_nnz, w)
-    g = FELL_GATHER_BPS if slots <= FELL_CLIFF_SLOTS else GATHER_BPS_LARGE
-    return slots * n_cols * itemsize / g \
-        + n_virt * n_cols * 8 / SEGSUM_BPS

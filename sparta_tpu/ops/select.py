@@ -1,13 +1,20 @@
-"""Kernel selection: one place that knows which SpMM path wins where.
+"""Kernel selection: one place that knows which blocked-SpMM path runs.
 
-Decision tree (measured on v5e, see docs/DESIGN.md §3):
-- blocks not MXU-tileable ((8,128)-aligned)      -> XLA gather path
-- K*tn fits the VMEM budget (resident B tile)    -> unrolled compact kernel
-- otherwise (huge K / heavy-tailed block counts) -> compact-gather kernel
+Candidates (each exists only where it can run):
+- ``triton``: the blocked Pallas kernel (ops/blocked.py), where
+  ``spmm_route`` sends the block shape to it (the GPU);
+- ``xla``: the plain gather + batched dot (``bell_spmm_xla``);
+- ``dense``: densify A once and run one GEMM (cuBLAS on the GPU), when the
+  dense A fits in a quarter of device memory.
+
+On the GPU the winner is MEASURED (autotune) and cached on disk, keyed by
+the structure; elsewhere, and with ``autotune=False``, a fixed rule picks:
+dense when every block is present, else the routed blocked path.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import jax
@@ -16,39 +23,28 @@ import numpy as np
 
 from ..definitions import to_device
 from ..formats.bell import BELL
-from .bell_compact import (
-    BellCompactDevice,
-    bell_spmm_pallas_compact_gather,
-    bell_spmm_pallas_compact_unrolled,
-    compact_auto_chunk,
-    compact_from_host_padded,
-    compact_optimal_chunk,
-)
 from .bell_xla import bell_spmm_xla
+from .blocked import bell_spmm_triton, spmm_route
 from .device import BellDevice
-
-VMEM_BUDGET = 12 * 2**20  # resident-B tile budget out of ~16MB/core
 
 
 def auto_tile_n(n: int) -> int:
-    """Largest of (512, 256, 128) dividing ``n``; the single tile rule for
-    every caller (runner, plan_spmm, int8 path)."""
+    """Largest of (512, 256, 128) dividing ``n``: the operand-width rule the
+    CLI's legacy backends pad to."""
     for t in (512, 256, 128):
         if n % t == 0:
             return t
     raise ValueError(f"N={n} is not a multiple of 128; pad the operand first")
 
 
-def unrolled_vmem_bytes(K: int, tn: int, bh: int, bw: int, chunk: int,
-                        itemsize: int, nslots: int = 2) -> int:
-    """VMEM footprint of the unrolled compact kernel: resident B tile +
-    double-buffered vals + fp32 accumulator + double-buffered out tile."""
-    return (
-        K * tn * itemsize                 # resident B tile
-        + nslots * chunk * bh * bw * itemsize  # vals pipeline
-        + bh * tn * 4                     # fp32 accumulator
-        + 2 * bh * tn * itemsize          # double-buffered out block
-    )
+def densify_bytes_cap() -> int:
+    """Largest dense A a plan may materialize: a quarter of the device's
+    memory (host memory on the CPU backend), leaving room for B, C and the
+    other candidates that autotune builds beside it."""
+    stats = jax.devices()[0].memory_stats() or {}
+    total = stats.get("bytes_limit") or (
+        os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+    return int(total) // 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,169 +55,58 @@ class SpmmPlan:
 
     fn: Callable
     backend: str
-    tn: int
-    chunk: int = 0
 
     def __call__(self, B):
         return self.fn(B)
 
 
-# measured v5e per-op costs (docs/DESIGN.md §3/§4): one 128x128x512 dot and
-# one fori_loop iteration; HBM bandwidths (streaming vs the gather kernel's
-# large sequential stripe reads, which measure near peak: bcsstk18 r2 A/B)
-_DOT512_S = 93e-9
-_ITER_S = 115e-9
-_HBM_BPS = 700e9
-_GATHER_BPS = 950e9
-_DENSE_TPS = 190e12  # measured dense MXU bf16 throughput
-DENSIFY_BYTES_CAP = 4 << 30  # max dense-A device bytes (16 GB HBM, headroom)
+def _candidates(bell: BELL, dtype) -> list[str]:
+    kinds = []
+    if spmm_route(bell.block_row_size, bell.block_col_size) == "triton":
+        kinds.append("triton")
+    kinds.append("xla")
+    M, K = bell.shape
+    if M * K * jnp.dtype(dtype).itemsize <= densify_bytes_cap():
+        kinds.append("dense")
+    return kinds
 
 
-def _dot_s(bh, tn):
-    # MXU dots are latency-bound below a full 128x512 tile: a narrower or
-    # shorter dot still costs ~_DOT512_S (measured: tn=256 halves nothing)
-    return _DOT512_S * max(bh, 128) / 128 * max(tn, 512) / 512
+def _rule(bell: BELL, kinds: list[str]) -> str:
+    full = bell.total_nzblocks == bell.n_block_rows * bell.n_block_cols
+    if full and "dense" in kinds:
+        return "dense"  # a full block grid is a dense GEMM plus overhead
+    return kinds[0]
 
 
-def _model_unrolled_s(padded_blocks, bh, bw, K, Np, tn, chunk, itemsize):
-    passes = Np // tn
-    dots = padded_blocks * passes * _dot_s(bh, tn)
-    iters = (padded_blocks // max(chunk, 1)) * passes * _ITER_S
-    btile = K * Np * itemsize / _HBM_BPS  # serial per-sweep B loads
-    vals = padded_blocks * bh * bw * itemsize * passes / _HBM_BPS
-    # vals DMA overlaps the dots; count only its excess over compute
-    return dots + iters + btile + max(vals - dots, 0.0)
-
-
-def _model_gather_s(total_blocks, bh, bw, Np, tn, itemsize):
-    passes = Np // tn
-    dots = total_blocks * passes * _dot_s(bh, tn)
-    iters = total_blocks * passes * _ITER_S
-    gathers = (total_blocks * passes * (bh * bw + bw * tn) * itemsize
-               / _GATHER_BPS)
-    return max(dots + iters, gathers)
-
-
-def _model_ksplit_s(total_blocks, nbr, bh, bw, K, Np, tn, chunk, itemsize,
-                    n_parts):
-    passes = Np // tn
-    # chunk padding accrues once per (part, row) on average chunk/2 blocks
-    padded = total_blocks + n_parts * nbr * chunk / 2
-    dots = padded * passes * _dot_s(bh, tn)
-    iters = padded / max(chunk, 1) * passes * _ITER_S
-    btile = K * Np * itemsize / _HBM_BPS
-    vals = padded * bh * bw * itemsize * passes / _HBM_BPS
-    # fp32 partial-C accumulation across parts
-    cout = (2 * n_parts - 1) * nbr * bh * Np * 4 / _HBM_BPS
-    return dots + iters + btile + max(vals - dots, 0.0) + cout
-
-
-def _candidate_plans(bell: BELL, N: int, dtype, tile_n):
-    """Ranked (model_seconds, kind, tn, n_parts, chunk) candidates."""
-    bh, bw = bell.block_row_size, bell.block_col_size
-    K = bell.shape[1]
-    Np = -(-N // 128) * 128
-    itemsize = jnp.dtype(dtype).itemsize
-    nb = np.asarray(bell.nb_row, dtype=np.int64)
-    # two chunk candidates: the hardware-validated mean heuristic and the
-    # exact histogram argmin (they differ mainly on heavy-tailed rows);
-    # each gets its own modeled row so autotune can settle close calls
-    chunks = sorted({compact_auto_chunk(nb),
-                     compact_optimal_chunk(nb, _DOT512_S, _ITER_S)})
-    total_blocks = int(nb.sum())
-    nbr = bell.n_block_rows
-
-    cands = []
-    tns = (tile_n,) if tile_n else (512, 256, 128)
-    for tn in tns:
-        if Np % tn:
-            continue
-        fitting = [c for c in chunks if unrolled_vmem_bytes(
-            K, tn, bh, bw, c, itemsize) <= VMEM_BUDGET]
-        for chunk in fitting:
-            padded_blocks = int(((nb + chunk - 1) // chunk * chunk).sum())
-            t = _model_unrolled_s(padded_blocks, bh, bw, K, Np, tn, chunk,
-                                  itemsize)
-            cands.append((t, "unrolled", tn, 1, chunk))
-        if not fitting:
-            # K-split: smallest part count whose B slice is VMEM-resident.
-            # The builder slices k_part*bw = ceil(nbc/P)*bw rows, up to
-            # bw-1 rows more than ceil(K/P) — check the REAL slice size.
-            nbc = -(-K // bw)
-            for P in range(2, 65):
-                Kp = -(-nbc // P) * bw
-                if unrolled_vmem_bytes(Kp, tn, bh, bw, 2, itemsize) \
-                        <= VMEM_BUDGET:
-                    t = _model_ksplit_s(total_blocks, nbr, bh, bw, K, Np, tn,
-                                        2, itemsize, P)
-                    cands.append((t, "ksplit", tn, P, 2))
-                    break
-    tn_g = tile_n or auto_tile_n(Np)
-    cands.append((_model_gather_s(total_blocks, bh, bw, Np, tn_g, itemsize),
-                  "gather", tn_g, 1, 0))
-    # densify + one MXU GEMM: wins when block occupancy approaches full
-    # (a fully-occupied bell does dense work plus per-block overhead);
-    # only feasible when the dense A fits device memory
-    M = bell.shape[0]
-    if M * K * itemsize <= DENSIFY_BYTES_CAP:
-        cands.append((2 * M * K * Np / _DENSE_TPS, "dense", tn_g, 1, 0))
-    return sorted(cands)
-
-
-def _build_plan(bell: BELL, kind: str, tn: int, n_parts: int, chunk: int,
-                dtype) -> SpmmPlan:
-    bw = bell.block_col_size
+def _build_plan(bell: BELL, kind: str, dtype) -> SpmmPlan:
     if kind == "dense":
         A = to_device(bell.to_dense_permuted(), dtype)
         return SpmmPlan(
             lambda B: jnp.dot(A, B, preferred_element_type=jnp.float32)
-            .astype(B.dtype),
-            "bell_densified_gemm", tn,
-        )
-    if kind == "unrolled":
-        cdev = compact_from_host_padded(bell, chunk, dtype=dtype)
-        return SpmmPlan(
-            lambda B: bell_spmm_pallas_compact_unrolled(
-                cdev, B, tn=tn, chunk=chunk),
-            f"bell_pallas_unrolled_tn{tn}_c{chunk}", tn, chunk,
-        )
-    if kind == "ksplit":
-        from .bell_compact import (
-            bell_spmm_pallas_compact_ksplit,
-            compact_ksplit_from_host,
-        )
-
-        parts, k_part = compact_ksplit_from_host(bell, n_parts, 2,
-                                                 dtype=dtype)
-        return SpmmPlan(
-            lambda B: bell_spmm_pallas_compact_ksplit(
-                parts, k_part, bw, B, tn=tn, chunk=2),
-            f"bell_pallas_ksplit_p{n_parts}_tn{tn}", tn, 2,
-        )
-    cdev = BellCompactDevice.from_host(bell, dtype=dtype)
-    return SpmmPlan(
-        lambda B: bell_spmm_pallas_compact_gather(cdev, B, tn=tn),
-        f"bell_pallas_gather_tn{tn}", tn,
-    )
+            .astype(B.dtype), "bell_densified_gemm")
+    dev = BellDevice.from_host(bell, dtype=dtype)
+    if kind == "triton":
+        return SpmmPlan(lambda B: bell_spmm_triton(dev, B), "bell_triton")
+    return SpmmPlan(lambda B: bell_spmm_xla(dev, B), "bell_xla")
 
 
 # ---- persistent autotune cache ------------------------------------------
-# Measured winners keyed by (structure fingerprint, N, dtype, backend,
+# Measured winners keyed by (structure fingerprint, N, dtype, device kind,
 # kernel version); serving workloads rebuild identical plans every process
 # start, so caching the measurement amortizes autotune to once per
 # structure.  Bump _AUTOTUNE_VERSION when kernel behavior changes.
-_AUTOTUNE_VERSION = 1
+_AUTOTUNE_VERSION = 2
 
 
 def _autotune_cache_path():
-    import os
     from pathlib import Path
+
+    from ..runtime import REPO_ROOT
 
     p = os.environ.get("SPARTA_TPU_AUTOTUNE_CACHE")
     if p == "0":
         return None
-    return Path(p) if p else (Path.home() / ".cache" / "sparta_tpu"
-                              / "autotune.json")
+    return Path(p) if p else REPO_ROOT / ".cache" / "autotune.json"
 
 
 def _autotune_key(bell: BELL, N: int, dtype) -> str:
@@ -234,7 +119,7 @@ def _autotune_key(bell: BELL, N: int, dtype) -> str:
               _AUTOTUNE_VERSION):
         h.update(int(v).to_bytes(8, "little", signed=True))
     h.update(str(jnp.dtype(dtype)).encode())
-    h.update(jax.default_backend().encode())
+    h.update(jax.devices()[0].device_kind.encode())
     return h.hexdigest()
 
 
@@ -273,66 +158,37 @@ def _autotune_cache_put(key: str, entry: dict) -> None:
 
 
 def plan_spmm(bell: BELL, N: int, dtype=jnp.float32,
-              tile_n: int | None = None, autotune: bool = False) -> SpmmPlan:
+              autotune: bool | None = None) -> SpmmPlan:
     """Pick the fastest device path for this blocked matrix and operand
-    width. ``N`` may be any positive width; callers pad B's columns to a
-    multiple of 128 (the plan's ``tn`` divides that padded width).
+    width ``N``.
 
-    Candidates: the resident-B unrolled kernel at every fitting tile width,
-    the K-split resident-by-parts kernel when the full B tile misses VMEM,
-    and the gather kernel — ranked by the measured v5e cost model.
-
-    ``autotune=True`` (TPU only) MEASURES the model's top candidates on a
-    random operand and returns the empirical winner — the model's error
-    between close candidates is ±30%, so benches that publish numbers
-    should autotune; the one-time cost is building + timing 2–3 device
-    layouts.  Winners persist in an on-disk cache keyed by the structure
-    fingerprint (``~/.cache/sparta_tpu/autotune.json``; override with
-    ``SPARTA_TPU_AUTOTUNE_CACHE=<path>``, disable with ``=0``), so a
-    serving process that rebuilds the same plan pays the measurement only
-    once ever."""
-    bh, bw = bell.block_row_size, bell.block_col_size
-    Np = -(-N // 128) * 128
-
-    if bh % 8 or bw % 128:
-        dev = BellDevice.from_host(bell, dtype=dtype)
-        return SpmmPlan(lambda B: bell_spmm_xla(dev, B),
-                        "bell_xla", tile_n or auto_tile_n(Np))
-
-    cands = _candidate_plans(bell, N, dtype, tile_n)
-    if not autotune or jax.default_backend() == "cpu" or len(cands) == 1:
-        _, kind, tn, n_parts, chunk = cands[0]
-        return _build_plan(bell, kind, tn, n_parts, chunk, dtype)
+    ``autotune`` (default: on when JAX's device is a GPU) MEASURES every
+    candidate on a random operand and returns the winner.  Winners persist
+    in an on-disk cache keyed by the structure fingerprint
+    (``<repo>/.cache/autotune.json``; override with
+    ``SPARTA_TPU_AUTOTUNE_CACHE=<path>``, disable with ``=0``), so a process
+    that rebuilds the same plan pays the measurement once."""
+    kinds = _candidates(bell, dtype)
+    if autotune is None:
+        autotune = jax.default_backend() == "gpu"
+    if not autotune or len(kinds) == 1:
+        return _build_plan(bell, _rule(bell, kinds), dtype)
 
     key = _autotune_key(bell, N, dtype)
     hit = _autotune_cache_get(key)
-    if hit is not None:
-        try:
-            return _build_plan(bell, hit["kind"], hit["tn"],
-                               hit["n_parts"], hit["chunk"], dtype)
-        except Exception:  # noqa: BLE001 — stale entry: re-measure
-            pass
+    if hit is not None and hit.get("kind") in kinds:
+        return _build_plan(bell, hit["kind"], dtype)
 
     from ..bench.timing import time_op
 
+    B = jnp.asarray(np.random.default_rng(0).standard_normal(
+        (bell.shape[1], N)).astype(np.float32), dtype=dtype)
     best = None
-    K = bell.shape[1]
-    B = jnp.asarray(
-        np.random.default_rng(0).standard_normal((K, Np)).astype(np.float32),
-        dtype=dtype)
-    for _, kind, tn, n_parts, chunk in cands[:3]:
-        plan = _build_plan(bell, kind, tn, n_parts, chunk, dtype)
-        try:
-            avg, _, _ = time_op(plan.fn, B, warmup=1, reps=2,
-                                target_time=0.1)
-        except Exception:  # noqa: BLE001 — a faulting candidate loses
-            continue
+    for kind in kinds:
+        plan = _build_plan(bell, kind, dtype)
+        avg, _, _ = time_op(plan.fn, B, warmup=1, reps=3)
         if best is None or avg < best[0]:
-            best = (avg, plan, (kind, tn, n_parts, chunk))
-    if best is None:  # every candidate failed: fall back to the model pick
-        _, kind, tn, n_parts, chunk = cands[0]
-        return _build_plan(bell, kind, tn, n_parts, chunk, dtype)
-    kind, tn, n_parts, chunk = best[2]
-    _autotune_cache_put(key, {"kind": kind, "tn": tn, "n_parts": n_parts,
-                              "chunk": chunk, "ms": round(best[0] * 1e3, 4)})
+            best = (avg, plan, kind)
+        del plan
+    _autotune_cache_put(key, {"kind": best[2], "ms": best[0] * 1e3})
     return best[1]

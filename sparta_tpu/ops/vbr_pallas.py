@@ -1,138 +1,49 @@
-"""Variable Block Row SpMM on the MXU: height-bucketed Pallas kernels.
+"""Variable Block Row SpMM through the blocked kernel.
 
 The XLA bucketed path (vbr_xla.py) is the correctness anchor for true VBR
-(unequal row-block heights, reference vbr.cpp); this runs each height bucket
-through the guard-free unrolled compact Pallas kernel (bell_compact.py) with
-bh = the bucket's 8-padded height, then scatters the stripes to their true
-row offsets. MXU-tileable buckets require bw % 128 == 0 (the CLI/runner
-falls back to the XLA path otherwise).
+(unequal row-block heights, reference vbr.cpp).  This path pads each
+bucket's height to a power of two of at least 16 (the kernel's tile rule),
+runs each bucket as one Blocked-ELL product through ``blocked_spmm``
+(the Triton kernel on the GPU, XLA elsewhere), then scatters the stripes to
+their true row offsets.
 """
 from __future__ import annotations
 
-import dataclasses
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from ..definitions import round_up, to_device
 from ..formats.vbr import VBR
-from .bell_compact import BellCompactDevice, bell_spmm_pallas_compact_unrolled
+from .blocked import blocked_spmm
+from .device import BellDevice
+from .vbr_xla import VbrDevice
 
 
-@jax.tree_util.register_pytree_node_class
-@dataclasses.dataclass
-class VbrPallasBucket:
-    """One padded height's block-rows, compact CSR-of-blocks layout with
-    per-row counts padded to a chunk multiple (zero blocks)."""
-
-    row_ptr: jax.Array    # int32 [nbb+1], counts multiples of chunk
-    cols_flat: jax.Array  # int32 [total]
-    vals_flat: jax.Array  # [total, h_pad, bw]
-    row_start: jax.Array  # int32 [nbb] output row offset (permuted space)
-    heights: jax.Array    # int32 [nbb] true heights
-
-    def tree_flatten(self):
-        return (self.row_ptr, self.cols_flat, self.vals_flat,
-                self.row_start, self.heights), None
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(*children)
+def vbr_kernel_device(vbr: VBR, dtype=jnp.float32) -> VbrDevice:
+    """Height-bucketed device layout with kernel-tileable heights."""
+    return VbrDevice.from_host(vbr, dtype=dtype, pow2_heights=True)
 
 
-@jax.tree_util.register_pytree_node_class
-@dataclasses.dataclass
-class VbrPallasDevice:
-    buckets: list
-    aux: tuple  # (out_rows, block_col_size, n_block_cols, chunk) — static
+@partial(jax.jit, static_argnames=("interpret", "accum_dtype"))
+def vbr_spmm_pallas(vbr: VbrDevice, B: jax.Array, accum_dtype=jnp.float32,
+                    interpret: bool = False) -> jax.Array:
+    """C[permuted rows] = A_vbr @ B;  B: [K, N] padded to nbc*bw.
 
-    def tree_flatten(self):
-        return (self.buckets,), self.aux
-
-    @classmethod
-    def tree_unflatten(cls, aux, children):
-        return cls(children[0], aux)
-
-    @property
-    def out_rows(self) -> int:
-        return self.aux[0]
-
-    @classmethod
-    def from_host(cls, vbr: VBR, chunk: int = 4, dtype=jnp.float32,
-                  sublane: int = 8) -> "VbrPallasDevice":
-        heights = vbr.heights
-        h_pads = np.maximum(round_up(1, sublane),
-                            (np.ceil(heights / sublane) * sublane).astype(np.int64))
-        jp = vbr.jab_ptr()
-        bw = vbr.block_col_size
-        buckets = []
-        for hp in np.unique(h_pads):
-            sel = np.flatnonzero(h_pads == hp)
-            nb = vbr.nzcount[sel].astype(np.int64)
-            if nb.sum() == 0:
-                continue  # bucket of empty block-rows: contributes nothing
-            nb_pad = (nb + chunk - 1) // chunk * chunk
-            row_ptr = np.concatenate(([0], np.cumsum(nb_pad))).astype(np.int32)
-            total = int(row_ptr[-1])
-            # at least `chunk` rows so the kernel's chunk-sized DMA slice
-            # is always in bounds
-            cols = np.zeros(max(total, chunk), dtype=np.int32)
-            vals = np.zeros((max(total, chunk), int(hp), bw), dtype=np.float32)
-            for t, ib in enumerate(sel):
-                n = int(nb[t])
-                h = int(heights[ib])
-                s = row_ptr[t]
-                cols[s : s + n] = vbr.jab[jp[ib] : jp[ib] + n]
-                for k in range(n):
-                    b = jp[ib] + k
-                    vals[s + k, :h] = vbr.mab[
-                        vbr.block_ptr[b] : vbr.block_ptr[b + 1]
-                    ].reshape(h, bw)
-            buckets.append(VbrPallasBucket(
-                row_ptr=jnp.asarray(row_ptr),
-                cols_flat=jnp.asarray(cols),
-                vals_flat=to_device(vals, dtype),
-                row_start=jnp.asarray(vbr.row_part[sel], dtype=jnp.int32),
-                heights=jnp.asarray(heights[sel], dtype=jnp.int32),
-            ))
-        return cls(buckets, (vbr.shape[0], bw, vbr.block_cols, chunk))
-
-
-@partial(jax.jit, static_argnames=("tn", "interpret", "accum_dtype"))
-def vbr_spmm_pallas(
-    vbr: VbrPallasDevice,
-    B: jax.Array,
-    tn: int = 512,
-    accum_dtype=jnp.float32,
-    interpret: bool = False,
-) -> jax.Array:
-    """C[permuted rows] = A_vbr @ B;  B: [K, N] padded to nbc*bw, N % tn == 0.
-
-    Per bucket: one unrolled compact Pallas kernel call (bh = padded bucket
-    height), then an XLA scatter-add of the stripes to true row offsets
-    (one dump row swallows the height-padding writes)."""
-    out_rows, bw, _, chunk = vbr.aux
+    Per bucket: one blocked product (bh = the bucket's padded height), then
+    an XLA scatter-add of the stripes to their true row offsets (one dump
+    row swallows the height-padding writes)."""
+    out_rows, _, _ = vbr.out_rows_aux
     N = B.shape[1]
     C = jnp.zeros((out_rows + 1, N), dtype=accum_dtype)
-
     for bucket in vbr.buckets:
-        nbb = bucket.row_start.shape[0]
-        hp = bucket.vals_flat.shape[1]
-        bc = BellCompactDevice(
-            row_ptr=bucket.row_ptr,
-            cols_flat=bucket.cols_flat,
-            vals_flat=bucket.vals_flat,
-            chunk_multiple=chunk,
-        )
-        Cb = bell_spmm_pallas_compact_unrolled(
-            bc, B, tn=tn, chunk=chunk, out_dtype=accum_dtype,
-            interpret=interpret,
-        ).reshape(nbb, hp, N)
+        nbb, _, hp, _ = bucket.vals.shape
+        nb_row = (bucket.cols_idx >= 0).sum(axis=1).astype(jnp.int32)
+        dev = BellDevice(bucket.cols_idx, nb_row, bucket.vals)
+        Cb = blocked_spmm(dev, B, out_dtype=accum_dtype,
+                          interpret=interpret).reshape(nbb, hp, N)
         offs = jax.lax.broadcasted_iota(jnp.int32, (nbb, hp), 1)
         idx = bucket.row_start[:, None] + offs
         idx = jnp.where(offs < bucket.heights[:, None], idx, out_rows)
         C = C.at[idx.reshape(-1)].add(Cb.reshape(-1, N))
-
     return C[:out_rows].astype(B.dtype)

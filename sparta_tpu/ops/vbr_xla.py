@@ -1,8 +1,9 @@
 """Variable Block Row SpMM on device: height-bucketed batched matmuls.
 
 True VBR (unequal row-block heights, reference vbr.cpp) fights XLA's static
-shapes; the TPU-native answer is bucketing: block-rows are grouped by padded
-height (next multiple of the sublane count), each bucket is a rectangular
+shapes; the answer here is bucketing: block-rows are grouped by padded
+height (next multiple of ``sublane``, or the next power of two of at least
+16 for the blocked kernel, ops/vbr_pallas.py), each bucket is a rectangular
 Blocked-ELL batch handled by one dot_general sweep, and the stripes scatter
 back to their true row offsets.  The reference's GPU numbers all use
 force_fixed_size anyway (SURVEY §7 hard parts) — this path exists for parity
@@ -57,10 +58,15 @@ class VbrDevice:
         return self.out_rows_aux[0]
 
     @classmethod
-    def from_host(cls, vbr: VBR, dtype=jnp.float32, sublane: int = 8) -> "VbrDevice":
+    def from_host(cls, vbr: VBR, dtype=jnp.float32, sublane: int = 8,
+                  pow2_heights: bool = False) -> "VbrDevice":
         heights = vbr.heights
-        h_pads = np.maximum(round_up(1, sublane),
-                            (np.ceil(heights / sublane) * sublane).astype(np.int64))
+        if pow2_heights:
+            h_pads = np.array([max(16, 1 << (int(h) - 1).bit_length())
+                               for h in heights], dtype=np.int64)
+        else:
+            h_pads = np.maximum(round_up(1, sublane), (np.ceil(
+                heights / sublane) * sublane).astype(np.int64))
         jp = vbr.jab_ptr()
         bw = vbr.block_col_size
         buckets = []

@@ -1,6 +1,5 @@
 from .attention import sequence_sharded_attention
 from .mesh import make_mesh, make_mesh_2d, sharding
-from .ring_kernel import spmm_reduce_scatter_pallas, spmm_ring_pallas
 from .spmm import (
     pad_block_rows,
     shard_bell_rowwise,
@@ -20,9 +19,7 @@ __all__ = [
     "shard_bell_rowwise",
     "sharding",
     "spmm_colsplit_reduce_scatter",
-    "spmm_reduce_scatter_pallas",
     "spmm_ring",
-    "spmm_ring_pallas",
     "dedup_spmm_rowsharded",
     "shard_dedup_rowwise",
     "spmm_rowsharded",

@@ -2,7 +2,7 @@
 
 The reference is single-GPU (CUDA streams only, SURVEY §2.7); multi-chip
 scaling is new capability mandated by the north star: block-rows sharded
-over ICI with jax.sharding, collectives inserted by XLA or explicit in
+with jax.sharding, collectives inserted by XLA or explicit in
 shard_map.
 """
 from __future__ import annotations

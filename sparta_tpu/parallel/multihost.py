@@ -22,7 +22,7 @@ def initialize_multihost(
     process_id: int | None = None,
 ) -> None:
     """Bring up jax.distributed (no-op on single process / managed envs that
-    auto-detect, e.g. TPU pod slices)."""
+    auto-detect)."""
     import jax
 
     kwargs = {}

@@ -1,6 +1,6 @@
 """Tracing / profiling subsystem.
 
-TPU-native replacement for the reference's NVTX ranges + cudaEvent timers
+The replacement for the reference's NVTX ranges + cudaEvent timers
 (include/cuda_utilities.h:11-36, TIMER_* macros):
 
 - ``annotate(name)``: jax.profiler trace annotation context (shows up in

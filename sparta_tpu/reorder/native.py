@@ -1,40 +1,25 @@
 """ctypes binding for the native C++ blocking engine (csrc/blocking.cc).
 
-Compiled lazily with g++ into csrc/_build/ (no pip deps); falls back to the
-numpy engine when no toolchain is available.  Same semantics as
-algos.greedy_blocking — parity-tested in tests/test_native.py.
+Compiled lazily with g++ on the machine that runs it (native_build.py: the
+library is keyed by source, flags and host); falls back to the numpy engine
+when no toolchain is available.  Same semantics as algos.greedy_blocking —
+parity-tested in tests/test_native.py.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
+from ..native_build import CSRC, build_native
 from .algos import BlockingStats
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "blocking.cc"
-_BUILD = _SRC.parent / "_build"
-_SO = _BUILD / "libsparta_blocking.so"
+_SRC = CSRC / "blocking.cc"
+_FLAGS = ["-O3", "-march=native", "-std=c++17"]
 
 _lib = None
 _tried = False
-
-
-def _build() -> bool:
-    _BUILD.mkdir(exist_ok=True)
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        str(_SRC), "-o", str(_SO),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        return True
-    except (subprocess.CalledProcessError, FileNotFoundError,
-            subprocess.TimeoutExpired):
-        return False
 
 
 def _load():
@@ -45,10 +30,10 @@ def _load():
     if os.environ.get("SPARTA_TPU_NO_NATIVE"):
         return None
     try:
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _build():
-                return None
-        lib = ctypes.CDLL(str(_SO))
+        so = build_native(_SRC, "sparta_blocking", _FLAGS)
+        if so is None:
+            return None
+        lib = ctypes.CDLL(str(so))
         lib.sparta_greedy_blocking.restype = ctypes.c_int
         lib.sparta_greedy_blocking.argtypes = [
             ctypes.POINTER(ctypes.c_int64),   # indptr

@@ -2,7 +2,7 @@
 
 The reference compares rows by merge-scanning their sorted column lists in
 the column-block domain (idx // block_size) — O(nnz) per pair
-(blocking.cpp:859-994).  The TPU-native design packs each row's occupied
+(blocking.cpp:859-994).  The design here packs each row's occupied
 column-block set into a uint64 bitset so one pattern-vs-row distance is a
 handful of popcounts, and pattern-vs-ALL-candidates is a single vectorized
 numpy pass over a [rows, words] array.

@@ -1,4 +1,4 @@
-"""Companion tools — TPU-native equivalents of the reference's driver
+"""Companion tools — counterparts of the reference's driver
 programs (SURVEY §2.5), as subcommands:
 
   analyze     ≡ Matrix_Analysis   : score a grouping (own or external .g)
@@ -246,12 +246,11 @@ def cmd_compare(args):
 
 
 def _plan_audit(args, m, N, dtype, table, chosen):
-    """Measure every non-disqualified csr_model_table candidate on the
-    current backend and compare against the model: model/measured ratios
-    plus a MISPICK flag when the model's choice is >1.5x slower (measured)
-    than the true winner.  Writes results/plan_audit_<stem>.json with
-    provenance (meaningful numbers need the TPU backend; a CPU run is
-    rerouted to *_cpu.json)."""
+    """Measure every feasible csr_work_table candidate on the current
+    backend: measured time beside the work count, and a MISPICK flag when
+    the fewest-work choice is >1.5x slower (measured) than the true winner.
+    Writes results/plan_audit_<stem>.json with provenance (meaningful
+    numbers need the GPU; a CPU run is rerouted to *_cpu.json)."""
     import numpy as np
 
     import jax.numpy as jnp
@@ -265,40 +264,27 @@ def _plan_audit(args, m, N, dtype, table, chosen):
     print("\naudit (measured on this backend):")
     audit = {"matrix": args.matrix, "rows": m.rows, "cols": m.cols,
              "nnz": m.nnz, "b_cols": N, "dtype": args.dtype,
-             "model_pick": chosen, "candidates": {}}
+             "work_pick": chosen, "candidates": {}}
     measured = {}
-    for name, sec in sorted(table.items(), key=lambda kv: kv[1]):
-        if sec == float("inf"):
-            audit["candidates"][name] = {"model_ms": None,
-                                         "status": "disqualified"}
+    for name, work in sorted(table.items(), key=lambda kv: kv[1]):
+        if work == float("inf"):
+            audit["candidates"][name] = {"status": "does not fit"}
             continue
-        try:
-            fn = csr_candidate_fn(m, N, name, dtype=dtype)
-            avg, std, _ = time_op(fn, B, warmup=1, reps=2)
-            measured[name] = avg
-            ratio = sec / avg if avg else float("nan")
-            audit["candidates"][name] = {
-                "model_ms": round(sec * 1e3, 3),
-                "measured_ms": round(avg * 1e3, 3),
-                "model_over_measured": round(ratio, 2)}
-            print(f"  {name:12s} model {sec*1e3:9.3f} ms  measured "
-                  f"{avg*1e3:9.3f} ms  (model/measured {ratio:5.2f})")
-            del fn
-        except Exception as e:  # noqa: BLE001 — a faulting candidate loses
-            audit["candidates"][name] = {"model_ms": round(sec * 1e3, 3),
-                                         "error": str(e)[:160]}
-            print(f"  {name:12s} model {sec*1e3:9.3f} ms  "
-                  f"FAILED {type(e).__name__}: {str(e)[:120]}")
-    if measured:
-        true_win = min(measured, key=measured.get)
-        audit["measured_pick"] = true_win
-        mispick = (chosen in measured and true_win != chosen
-                   and measured[chosen] > 1.5 * measured[true_win])
-        audit["mispick"] = bool(mispick)
-        print(f"  measured winner: {true_win}"
-              + (f"  ** MISPICK: model chose {chosen} "
-                 f"({measured[chosen]/measured[true_win]:.2f}x slower) **"
-                 if mispick else ""))
+        fn = csr_candidate_fn(m, N, name, dtype=dtype)
+        avg, std, _ = time_op(fn, B, warmup=1, reps=2)
+        measured[name] = avg
+        audit["candidates"][name] = {"macs": work, "measured_ms": avg * 1e3}
+        print(f"  {name:12s} {work:14.4g} MACs  measured {avg*1e3:9.3f} ms")
+        del fn
+    true_win = min(measured, key=measured.get)
+    audit["measured_pick"] = true_win
+    mispick = (chosen in measured and true_win != chosen
+               and measured[chosen] > 1.5 * measured[true_win])
+    audit["mispick"] = bool(mispick)
+    print(f"  measured winner: {true_win}"
+          + (f"  ** MISPICK: work count chose {chosen} "
+             f"({measured[chosen]/measured[true_win]:.2f}x slower) **"
+             if mispick else ""))
     stem = Path(args.matrix).stem
     p = write_result(f"results/plan_audit_{stem}.json", audit, hw_only=True)
     print(f"  audit -> {p}")
@@ -306,15 +292,14 @@ def _plan_audit(args, m, N, dtype, table, chosen):
 
 def cmd_plan(args):
     """Explain what the selectors would run for a matrix: the unstructured
-    csr_spmm_auto candidate table (same csr_model_table the selector uses)
-    and, for the blocked path, plan_spmm's ranked kernel candidates on the
-    natural (or reordered) blocking."""
+    csr_spmm_auto candidate table (multiply-adds per call, the count it
+    ranks when it does not measure) and plan_spmm's blocked candidates on
+    the natural (or reordered) blocking."""
     import jax.numpy as jnp
 
-    from .definitions import round_up
     from .formats import bell_from_csr, read_matrix
-    from .ops.csr_spmm import csr_model_table
-    from .ops.select import _candidate_plans
+    from .ops.csr_spmm import csr_work_table
+    from .ops.select import _candidates, _rule
 
     m = read_matrix(args.matrix, pattern_only=True)
     dtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
@@ -323,16 +308,14 @@ def cmd_plan(args):
     print(f"{args.matrix}: {m.rows}x{m.cols} nnz={m.nnz} "
           f"fill={m.nnz / max(m.rows * m.cols, 1):.4%}  N={N} {args.dtype}")
 
-    table, aux = csr_model_table(m, N, dtype)
+    table, aux = csr_work_table(m, N, dtype)
     chosen = min(table, key=table.get)
     print(f"\nunstructured (csr_spmm_auto) candidates "
           f"[natural-128 nzblocks={aux['natural_nzblocks']}, "
-          f"fell_w={aux['fell_w']}"
-          + (f", dedup distinct pairs={aux['dedup_n_uniq']}"
-             if aux["dedup_n_uniq"] is not None else "") + "]:")
-    for name, sec in sorted(table.items(), key=lambda kv: kv[1]):
-        mark = " <- chosen" if name == chosen else ""
-        val = "disqualified" if sec == float("inf") else f"{sec * 1e3:9.3f} ms"
+          f"dedup distinct pairs={aux['dedup_n_uniq']}]:")
+    for name, work in sorted(table.items(), key=lambda kv: kv[1]):
+        mark = " <- fewest" if name == chosen else ""
+        val = "does not fit" if work == float("inf") else f"{work:14.4g} MACs"
         print(f"  {name:12s} {val}{mark}")
 
     if getattr(args, "audit", False):
@@ -353,14 +336,11 @@ def cmd_plan(args):
         print("\nnatural blocking (pass --tau to reorder first):")
     bell = bell_from_csr(m, grouping, block_row_size=args.block,
                          block_col_size=args.block)
-    cands = _candidate_plans(bell, round_up(N, 128), dtype, 0)
-    print(f"  {bell.total_nzblocks} nonzero {args.block}-blocks")
-    for sec, kind, tn, parts, chunk in cands:
-        extra = (f" x{parts} parts" if parts > 1 else "") \
-            + (f" c{chunk}" if chunk else "")
-        print(f"  {kind:10s} tn={tn:<4d}{extra:10s} {sec * 1e3:9.3f} ms"
-              + (" <- chosen"
-                 if (sec, kind, tn, parts, chunk) == cands[0] else ""))
+    kinds = _candidates(bell, dtype)
+    pick = _rule(bell, kinds)
+    print(f"  {bell.total_nzblocks} nonzero {args.block}-blocks; candidates "
+          f"(measured on the GPU): {', '.join(kinds)}; without measuring: "
+          f"{pick}")
 
 
 def cmd_sweep(args):
@@ -497,16 +477,16 @@ def build_parser():
                     help="reorder first (algo --algo) at this tau")
     pn.add_argument("-a", "--algo", type=int, default=3)
     pn.add_argument("--audit", action="store_true",
-                    help="measure every candidate vs the model; flag "
-                         "mispicks >1.5x (results/plan_audit_<stem>.json)")
+                    help="measure every candidate; flag a fewest-work pick "
+                         ">1.5x slower (results/plan_audit_<stem>.json)")
     pn.set_defaults(fn=cmd_plan)
     return p
 
 
 def main(argv=None):
-    from .bench.device import ensure_cpu_backend
+    from .runtime import setup_compile_cache
 
-    ensure_cpu_backend()  # honor an explicit JAX_PLATFORMS=cpu drive
+    setup_compile_cache()
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -1,6 +1,6 @@
 """Permutation / partition helpers and timers.
 
-TPU-native, vectorized equivalents of the reference's pointer-chasing
+Vectorized equivalents of the reference's pointer-chasing
 helpers (reference: include/utilities.h, src/general/utilities.cpp).
 """
 from __future__ import annotations

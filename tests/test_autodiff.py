@@ -2,6 +2,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from sparta_tpu.formats import bell_from_csr, random_block_csr
 from sparta_tpu.ops import BellDevice, bell_spmm_xla, pad_b_for_bell
@@ -21,18 +22,21 @@ def make_problem():
 
 def test_forward_matches_xla():
     dev, B = make_problem()
-    C1 = bell_spmm(dev.cols_idx, dev.nb_row, dev.vals, False, B)
+    C1 = bell_spmm(dev.cols_idx, dev.nb_row, dev.vals, B)
     C2 = bell_spmm_xla(dev, B)
     np.testing.assert_allclose(np.asarray(C1), np.asarray(C2), rtol=1e-5)
-    C3 = bell_spmm(dev.cols_idx, dev.nb_row, dev.vals, True, B)
+    C3 = bell_spmm(dev.cols_idx, dev.nb_row, dev.vals, B, True)
     np.testing.assert_allclose(np.asarray(C3), np.asarray(C2), rtol=1e-4, atol=1e-4)
 
 
-def test_custom_vjp_matches_autodiff():
+@pytest.mark.parametrize("interpret", [False, True])
+def test_custom_vjp_matches_autodiff(interpret):
+    """Gradients through the routed forward (the kernel under the Pallas
+    interpreter, or XLA) equal autodiff through the XLA path."""
     dev, B = make_problem()
 
     def loss_custom(vals, B):
-        C = bell_spmm(dev.cols_idx, dev.nb_row, vals, False, B)
+        C = bell_spmm(dev.cols_idx, dev.nb_row, vals, B, interpret)
         return jnp.sum(jnp.sin(C))
 
     def loss_auto(vals, B):
@@ -51,7 +55,7 @@ def test_padding_blocks_get_zero_grad():
     assert pad_mask.any()
 
     def loss(vals):
-        return jnp.sum(bell_spmm(dev.cols_idx, dev.nb_row, vals, False, B) ** 2)
+        return jnp.sum(bell_spmm(dev.cols_idx, dev.nb_row, vals, B) ** 2)
 
     gv = np.asarray(jax.grad(loss)(dev.vals))
     assert np.all(gv[pad_mask] == 0)

@@ -136,8 +136,8 @@ def test_inverted_transposed_backend_matches_oracle(tmp_path):
 
 def test_variable_inverted_retiled_backend_matches_oracle(tmp_path):
     """-M 11 WITHOUT -F (variable-height VBR inverted): the re-tiled
-    transpose Pallas path == scipy oracle in the variable-grouping row
-    order (VERDICT r1 #7)."""
+    transpose path == scipy oracle in the variable-grouping row
+    order."""
     import jax.numpy as jnp
 
     from sparta_tpu.bench.runner import make_backend
@@ -184,10 +184,8 @@ def test_sweep_extract_error_line():
 
 
 def test_fp8_fallthrough_times_bf16_b(matrix_file, tmp_path, monkeypatch):
-    """Regression: fp8 configs that fall through to the bf16 plan (blocks not
-    quant-tileable, or the VMEM guard on large K) must time a bf16 B operand.
-    make_backend sizes structures and VMEM budgets at itemsize 2 for fp8; an
-    fp32 B doubles the resident [K, tn] tile the selector modeled."""
+    """fp8 configs quantize a bf16 B: the timed operand must be bf16 (the
+    runner's dtype rule mirrors make_backend's)."""
     import jax.numpy as jnp
 
     import sparta_tpu.bench.runner as runner_mod
@@ -200,8 +198,6 @@ def test_fp8_fallthrough_times_bf16_b(matrix_file, tmp_path, monkeypatch):
         return orig(fn, B, **kw)
 
     monkeypatch.setattr(runner_mod, "time_op", spy)
-    # col_block_size=16 (not a multiple of 128) keeps the fp8 quantized
-    # kernel ineligible, so -M 8 falls through to the bf16 plan
     cfg = base_cfg(matrix_file, tmp_path, multiplication_algo=8, dtype="fp8")
     run_experiment(cfg)
     assert captured["dtype"] == jnp.bfloat16
@@ -229,7 +225,7 @@ def test_config_hash_stable_across_new_default_fields(tmp_path):
 
 def test_quantized_run_emits_rel_err(tmp_path):
     """int8/fp8 runner rows must carry an end-to-end rel_err vs the fp32
-    oracle on the same structure (VERDICT r2 #4 accuracy evidence)."""
+    oracle on the same structure (the matched-accuracy evidence)."""
     from sparta_tpu.bench.runner import run_experiment
     from sparta_tpu.formats import random_block_csr
 
@@ -267,21 +263,19 @@ def test_csr_impl_fine_family(tmp_path, impl):
 
 def test_quantized_csr_auto_rel_err_family_pinned(tmp_path, monkeypatch):
     """-M 2 int8 with csr_impl=auto: the fp32 rel_err oracle must rebuild
-    the SAME csr family the quantized run resolved to, even when the
-    dtype-aware cost model would flip the pick at float32 (which can
-    change the expected B layout and crash, or silently compare across
+    the SAME csr family the quantized run resolved to, even when a
+    dtype-dependent pick would flip at float32 (which can change the
+    expected B layout and crash, or silently compare across
     executions)."""
     from sparta_tpu.bench import runner as runner_mod
     from sparta_tpu.bench.runner import run_experiment
     from sparta_tpu.formats.csr import rmat_csr
-    from sparta_tpu.ops import csr_spmm as auto_mod
 
     m = rmat_csr(10, edge_factor=4, seed=6)
     path = tmp_path / "g.el"
     m.save_to_edgelist(path)
-    # force the auto pick into the fine family so the pin is exercised
-    monkeypatch.setattr(auto_mod, "_DENSE_TPS", 1e9)
-    monkeypatch.setattr(auto_mod, "_NATBELL_TPS", 1e9)
+    # without measuring, the auto pick is the fine family (fewest
+    # multiply-adds), so the pin is exercised
 
     picks = []
     orig = runner_mod.make_backend
@@ -303,7 +297,7 @@ def test_quantized_csr_auto_rel_err_family_pinned(tmp_path, monkeypatch):
     assert odtype == "float32"
     assert "csr_auto_fine[" in qname, qname  # the pin must be exercised
     fam = qname.split("[")[1].rstrip("]")
-    assert oimpl == {"mask": "fine"}.get(fam, fam)
+    assert oimpl == fam
     assert oname.startswith(("csr_fine", "csr_dedup", "csr_fell"))
 
 
@@ -347,7 +341,7 @@ def test_sweep_adopts_legacy_hash_cells(matrix_file, tmp_path):
 
 
 def test_adoption_distinguishes_late_knobs(matrix_file, tmp_path):
-    """ADVICE r3: a cell differing ONLY in csr_impl/tile_n/inner_iters/
+    """A cell differing ONLY in csr_impl/tile_n/inner_iters/
     autotune/dtype must never be adopted (renamed) as a sibling's cache —
     a grid over csr_impl=[fine,dedup] would otherwise record one impl's
     results under the other's hash and delete the first's artifacts."""

@@ -1,8 +1,8 @@
-"""Fine-grained (non-blocked) SpMM: FineDevice slab+mask-combine pipeline,
-FellDevice pure-XLA fallback, tile-aligned layout invariants.
+"""Fine-grained (non-blocked) SpMM: FineDevice gather + segment-sum,
+DedupDevice gather + batched-dot combine, FellDevice virtual rows.
 
 Reference capability: cusparse_gemm_custom
-(/root/reference/src/cuda/cuda_utilities.cpp:1251-1431) — the fine-grained
+(cuda_utilities.cpp:1251-1431) — the fine-grained
 sparse kernel for matrices too sparse to block."""
 import jax
 import jax.numpy as jnp
@@ -16,14 +16,11 @@ from sparta_tpu.ops.fine import (
     FineDevice,
     choose_width,
     dedup_combine,
-    dedup_model_s,
     dedup_spmm,
     fell_slots,
     fell_spmm,
-    fine_model_s,
     fine_spmm,
     mask_combine,
-    tile_aligned_layout,
 )
 
 
@@ -47,7 +44,7 @@ def test_fine_spmm_powerlaw_hubs_and_empty_rows():
     assert (m.row_nnz == 0).any(), "want empty rows in the test graph"
     B = np.random.default_rng(1).standard_normal((m.cols, 512)).astype(
         np.float32)
-    dev = FineDevice.from_csr(m, dtype=jnp.float32, tile_rows=256, chunk=512)
+    dev = FineDevice.from_csr(m, dtype=jnp.float32)
     C = np.asarray(fine_spmm(dev, jnp.asarray(B)))
     np.testing.assert_allclose(C, _dense_oracle(m, B), rtol=1e-3, atol=1e-3)
 
@@ -64,74 +61,26 @@ def test_fine_spmm_bf16():
     assert np.abs(C - ref).max() / denom < 3e-2
 
 
-def test_tile_aligned_layout_invariants():
-    rng = np.random.default_rng(4)
-    deg = rng.integers(0, 50, 1000)
-    rp = np.zeros(1001, dtype=np.int64)
-    np.cumsum(deg, out=rp[1:])
-    tptr, new_pos, total = tile_aligned_layout(rp, 256, align=128, chunk=2048)
-    # region starts 128-aligned
-    assert (tptr[:-1] % 128 == 0).all()
-    # positions strictly increasing within the whole stream (CSR order kept)
-    assert (np.diff(new_pos) > 0).all() or new_pos.size <= 1
-    # every tile's slots land inside its region
-    ntiles = tptr.size - 1
-    owner = np.repeat(np.arange(1000) // 256, deg)
-    for t in range(ntiles):
-        sel = owner == t
-        if sel.any():
-            assert new_pos[sel].min() >= tptr[t]
-            assert new_pos[sel].max() < tptr[t + 1]
-    # safety tail for DMA overrun
-    assert total >= int(tptr[-1]) + 2048
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mask_combine_matches_scipy(seed):
+    """The segment-sum combine == scipy's CSR product for the same
+    per-nonzero contributions (vals * B[cols])."""
+    m = rmat_csr(8, edge_factor=6, seed=seed)
+    B = np.random.default_rng(seed).standard_normal((m.cols, 64)).astype(
+        np.float32)
+    rows = np.repeat(np.arange(m.rows), m.row_nnz)
+    contrib = m.values()[:, None] * B[m.indices]
+    got = np.asarray(mask_combine(jnp.asarray(rows, jnp.int32),
+                                  jnp.asarray(contrib), m.rows))
+    np.testing.assert_allclose(got, m.to_scipy() @ B, rtol=1e-4, atol=1e-4)
 
 
-def test_fine_model_monotonic():
-    # more nonzeros -> more modeled time; used by csr_spmm_auto
-    a = fine_model_s(10_000, 1000, 512)
-    b = fine_model_s(1_000_000, 1000, 512)
-    assert b > a > 0
-
-
-def test_gather_bps_surface():
-    """The calibrated (rowbytes, table size, index count) gather-rate
-    surface (VERDICT r4 missing #2: slot count alone mispredicts 3.7x on
-    128 MB tables; recalibrated from the r5 hardware grid,
-    results/gather_probe2.json)."""
-    from sparta_tpu.ops.fine import GATHER_POINTS, gather_bps
-
-    # exact calibration points reproduce exactly
-    for rb, mb, s, g in GATHER_POINTS:
-        got = gather_bps(s, mb << 20, rowbytes=rb)
-        assert abs(got - g * 1e9) / (g * 1e9) < 1e-9, (rb, mb, s)
-    # interpolated values stay within each class's measured envelope
-    for rb in (1024, 512):
-        cls = [g for r, *_m, g in GATHER_POINTS if r == rb]
-        lo, hi = min(cls) * 1e9, max(cls) * 1e9
-        for tb, s in ((48 << 20, 100_000), (96 << 20, 500_000),
-                      (1 << 30, 2_000_000), (8 << 20, 4_096)):
-            assert lo <= gather_bps(s, tb, rowbytes=rb) <= hi
-    # the headline discovery: the 64 -> 128 MB table cliff at S=256k
-    assert gather_bps(262_144, 128 << 20) < 0.5 * gather_bps(
-        262_144, 64 << 20)
-    # int8 (512 B rows) is NOT half the bf16 byte rate on small tables:
-    # the gather is row-count-bound there (~120 GB/s measured)
-    assert gather_bps(262_144, 32 << 20, rowbytes=512) > 100e9
-    # ...but in the big-table regime 512 B rows move fewer bytes/s
-    assert gather_bps(262_144, 128 << 20, rowbytes=512) < gather_bps(
-        262_144, 128 << 20, rowbytes=1024)
-    # None preserves the legacy slot-count-only fork
-    assert gather_bps(100_000) > gather_bps(1_000_000)
-    # a larger table never models FASTER at fixed small S
-    assert gather_bps(262_144, 64 << 20) >= gather_bps(262_144, 128 << 20)
-
-
-def test_fine_model_table_size_dependence():
-    """k_rows (the gather table's rows) must influence the modeled time:
-    the same nnz on a 128 MB-class table models slower than on 64 MB."""
-    small = fine_model_s(200_000, 65_536, 2048, k_rows=65_536)
-    large = fine_model_s(200_000, 65_536, 2048, k_rows=131_072)
-    assert large > small
+def test_fine_empty_matrix():
+    m = CSR.from_coo(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                     np.zeros(0, np.float32), (5, 7))
+    dev = FineDevice.from_csr(m, dtype=jnp.float32)
+    C = np.asarray(fine_spmm(dev, jnp.ones((7, 16), jnp.float32)))
+    assert C.shape == (5, 16) and not C.any()
 
 
 # ------------------------------------------------------------ DEDUP ----
@@ -142,34 +91,16 @@ def test_dedup_spmm_matches_dense():
     B = np.random.default_rng(1).standard_normal((m.cols, 512)).astype(
         np.float32)
     dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                               chunk=512)
-    assert dev.n_slots < m.nnz + len(np.asarray(dev.tptr)) * 128 + 512
+                               chunk=128)
+    ntiles = -(-m.rows // 128)
+    assert dev.n_slots < m.nnz + ntiles * 128  # dedup + < 1 chunk padding
     C = np.asarray(dedup_spmm(dev, jnp.asarray(B)))
     np.testing.assert_allclose(C, _dense_oracle(m, B), rtol=1e-3, atol=1e-3)
 
 
-def test_pick_slab_table_cliff():
-    """_pick_slab's table-aware narrowing (kept for probes — production
-    uses the legacy width after the measured dead end documented in
-    _materialize_slab) and the model's table-size dependence."""
-    from sparta_tpu.ops.fine import _pick_slab
-
-    assert _pick_slab(2048) == 512                      # legacy: no table
-    assert _pick_slab(2048, table_rows=65_536) == 512   # 64 MB fits
-    assert _pick_slab(2048, table_rows=131_072) == 256  # rmat17 class
-    assert _pick_slab(2048, table_rows=262_144) == 128
-    assert _pick_slab(2048, table_rows=1 << 20) == 512  # nothing fits
-    assert _pick_slab(2048, table_rows=131_072, itemsize=1) == 512  # int8
-    # the model keys the gather rate on the (legacy 512-wide) table size
-    t_small = fine_model_s(200_000, 65_536, 2048, k_rows=65_536)
-    t_large = fine_model_s(200_000, 65_536, 2048, k_rows=131_072)
-    assert t_large > t_small
-
-
 def test_fine_dedup_narrow_slab_correct():
-    """Multi-slab narrow path (N=768 -> three 256-col slabs, the width
-    _pick_slab picks when 512 doesn't divide N): fine and dedup vs the
-    dense oracle."""
+    """An operand width that is no power of two (N=768): fine and dedup vs
+    the dense oracle."""
     m = rmat_csr(9, edge_factor=8, seed=6)
     B = np.random.default_rng(7).standard_normal((m.cols, 768)).astype(
         np.float32)
@@ -183,18 +114,16 @@ def test_fine_dedup_narrow_slab_correct():
 
 
 def test_dedup256_candidate_and_pricing():
-    """The 256-row-tile dedup variant (measured beating R=128 on rmat15,
-    results/fine_probe2.json r5): priced in csr_model_table with its own
-    distinct-pair count, buildable via csr_candidate_fn, and correct."""
-    from sparta_tpu.ops.csr_spmm import csr_candidate_fn, csr_model_table
+    """The 256-row-tile dedup variant: counted in csr_work_table with its
+    own distinct-pair count, buildable via csr_candidate_fn, and correct."""
+    from sparta_tpu.ops.csr_spmm import csr_candidate_fn, csr_work_table
 
     m = rmat_csr(11, edge_factor=8, seed=5)
-    table, aux = csr_model_table(m, 512, dtype=jnp.float32)
+    table, aux = csr_work_table(m, 512, dtype=jnp.float32)
     assert "dedup256" in table
-    if aux["dedup256_n_uniq"] is not None:
-        # bigger tiles can only merge MORE (tile, col) pairs
-        assert aux["dedup256_n_uniq"] <= aux["dedup_n_uniq"]
-        assert np.isfinite(table["dedup256"])
+    # bigger tiles can only merge MORE (tile, col) pairs
+    assert aux["dedup256_n_uniq"] <= aux["dedup_n_uniq"]
+    assert np.isfinite(table["dedup256"])
     B = np.random.default_rng(4).standard_normal((m.cols, 512)).astype(
         np.float32)
     fn = csr_candidate_fn(m, 512, "dedup256", dtype=jnp.float32)
@@ -202,15 +131,17 @@ def test_dedup256_candidate_and_pricing():
                                _dense_oracle(m, B), rtol=1e-3, atol=1e-3)
 
 
-def test_dedup_spmm_tail_chunk_overrun():
-    """Tile regions are 128-aligned but chunks read C slots: the in-kernel
-    tail mask must zero the overrun into the NEXT tile's live slots."""
+@pytest.mark.parametrize("chunk", [16, 256, 2048])
+def test_dedup_spmm_tail_chunk_overrun(chunk):
+    """Each tile's slots pad to a chunk multiple with zero-weight dead
+    slots; any chunk size (smaller or larger than a tile's slots) gives
+    the same product."""
     m = random_uniform_csr(300, 400, density=0.02, seed=3)
     B = np.random.default_rng(2).standard_normal((400, 512)).astype(
         np.float32)
-    # chunk larger than any region: every tile's single chunk overruns
     dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                               chunk=2048)
+                               chunk=chunk)
+    assert dev.n_slots % chunk == 0
     C = np.asarray(dedup_spmm(dev, jnp.asarray(B)))
     np.testing.assert_allclose(C, _dense_oracle(m, B), rtol=1e-4, atol=1e-4)
 
@@ -220,7 +151,7 @@ def test_dedup_spmm_int8_b():
     B = np.random.default_rng(3).standard_normal((m.cols, 512)).astype(
         np.float32)
     dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                               chunk=512)
+                               chunk=128)
     C = np.asarray(dedup_spmm(dev, jnp.asarray(B), b_int8=True),
                    np.float32)
     ref = _dense_oracle(m, B)
@@ -236,42 +167,52 @@ def test_dedup_duplicate_coo_entries_sum():
     cols = np.array([3, 3, 7, 7, 2])
     vals = np.array([1.0, 2.0, 4.0, 8.0, 16.0], dtype=np.float32)
     m = CSR.from_coo(rows, cols, vals, (130, 10))
-    dev = DedupDevice.from_csr(m, dtype=jnp.float32, chunk=512)
+    dev = DedupDevice.from_csr(m, dtype=jnp.float32, chunk=128)
     eye = np.eye(10, 128, dtype=np.float32)
     C = np.asarray(dedup_spmm(dev, jnp.asarray(eye)))
     np.testing.assert_allclose(C[:, :10], m.multiply(np.eye(10, dtype=np.float32)))
 
 
 def test_dedup_spmm_wide_n_single_pass():
-    """N > 512 gathers per-slab but combines ALL slabs in one grid pass
-    (ns side-by-side VMEM lanes); result must match the per-slab math."""
+    """A wide operand (N=1536) in one gather and one combine."""
     m = rmat_csr(9, edge_factor=8, seed=7)
     B = np.random.default_rng(4).standard_normal((m.cols, 1536)).astype(
         np.float32)  # 3 slabs of 512
     dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                               chunk=512)
+                               chunk=128)
     C = np.asarray(dedup_spmm(dev, jnp.asarray(B)))
     np.testing.assert_allclose(C, _dense_oracle(m, B), rtol=1e-3, atol=1e-3)
 
 
 def test_dedup_spmm_wide_n_int8():
-    """Wide-N with int8-gathered B: per-slab scales concatenate into one
-    [1, N] dequant row applied in the epilogue."""
+    """Wide-N with int8-gathered B: one [1, N] dequant row applied after
+    the combine."""
     m = rmat_csr(8, edge_factor=6, seed=9)
     B = np.random.default_rng(5).standard_normal((m.cols, 1024)).astype(
         np.float32)
     dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                               chunk=512)
+                               chunk=128)
     C = np.asarray(dedup_spmm(dev, jnp.asarray(B), b_int8=True), np.float32)
     ref = _dense_oracle(m, B)
     denom = np.abs(ref).max() + 1e-9
     assert np.abs(C - ref).max() / denom < 2e-2
 
 
-def test_dedup_model_monotonic():
-    a = dedup_model_s(10_000, 1000, 512)
-    b = dedup_model_s(1_000_000, 1000, 512)
-    assert b > a > 0
+@pytest.mark.parametrize("R,chunk", [(128, 64), (256, 128)])
+def test_dedup_combine_matches_scipy(R, chunk):
+    """The batched-dot combine == scipy's product, straight from the
+    packed weights and the gathered distinct rows."""
+    m = rmat_csr(9, edge_factor=6, seed=R)
+    B = np.random.default_rng(1).standard_normal((m.cols, 96)).astype(
+        np.float32)
+    dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=R,
+                               chunk=chunk)
+    bg = jnp.asarray(B)[dev.gidx]
+    got = np.asarray(dedup_combine(dev.chunk_tile, dev.W, bg,
+                                   dev.padded_rows, R=R, C=chunk))
+    np.testing.assert_allclose(got[: m.rows], m.to_scipy() @ B, rtol=1e-4,
+                               atol=1e-4)
+    assert not got[m.rows:].any()
 
 
 # ------------------------------------------------------------- FELL ----
@@ -316,19 +257,17 @@ def test_fell_slots_and_width():
     assert slots == n_virt * 4
     w = choose_width(L)
     assert w in (4, 8, 16, 32, 64)
+    # the least padded slots plus virtual rows among the widths
+    assert sum(fell_slots(L, w)) == min(sum(fell_slots(L, v))
+                                        for v in (4, 8, 16, 32, 64))
 
 
 def test_csr_auto_picks_fine_on_powerlaw():
-    """A low-fill power-law graph must route to the fine path under the
-    real (unpatched) cost model."""
+    """A low-fill power-law graph routes to the fine family when nothing
+    is measured (the fewest multiply-adds)."""
     from sparta_tpu.ops.csr_spmm import csr_spmm_auto
 
-    # 16384^2, ~0.02% fill at the production dtype (bf16): dense pads
-    # 4000x and natural blocking is 7k mostly-singleton blocks — the fine
-    # path wins on the real cost model (at f32 the doubled gather bytes
-    # make natbell the honest pick at this size; fine takes over from
-    # rmat15 up regardless of dtype)
-    m = rmat_csr(14, edge_factor=4, seed=2)
+    m = rmat_csr(12, edge_factor=4, seed=2)
     fn, name, flops = csr_spmm_auto(m, 512, dtype=jnp.bfloat16)
     assert name.startswith("csr_auto_fine"), name
     B = np.random.default_rng(3).standard_normal((m.cols, 512)).astype(
@@ -344,7 +283,7 @@ def test_dedup_spmm_ad_grad_matches_dense():
     from sparta_tpu.ops.fine import dedup_pair_from_csr, dedup_spmm_ad
 
     m = rmat_csr(8, edge_factor=6, seed=2)
-    dev, devT = dedup_pair_from_csr(m, dtype=jnp.float32, chunk=512)
+    dev, devT = dedup_pair_from_csr(m, dtype=jnp.float32, chunk=128)
     rng = np.random.default_rng(0)
     for N in (128, 1024):  # single slab and wide-N (one-pass combine)
         B = jnp.asarray(rng.standard_normal((m.cols, N)).astype(np.float32))
@@ -388,46 +327,8 @@ def test_gcn_fine_adjacency_trains():
     assert float(loss) < first * 0.8
 
 
-def test_gather_chunking_matches_whole(monkeypatch):
-    """GATHER_CHUNK_ROWS splits large-S gathers into pieces; results must
-    be bit-identical to the whole gather (fine_probe2 calibrates whether
-    the pieces ride the small-S rate)."""
-    from sparta_tpu.ops import fine as fine_mod
-
-    m = rmat_csr(9, edge_factor=7, seed=13)
-    B = np.random.default_rng(8).standard_normal((m.cols, 384)).astype(
-        np.float32)
-    monkeypatch.setattr(fine_mod, "GATHER_CHUNK_ROWS", 1000)
-    dev = DedupDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                               chunk=512)
-    assert dev.n_slots > 1000  # the chunked path must actually engage
-    C = np.asarray(dedup_spmm(dev, jnp.asarray(B)))
-    np.testing.assert_allclose(C, _dense_oracle(m, B), rtol=1e-3, atol=1e-3)
-    fdev = fine_mod.FineDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                                        chunk=512)
-    Cf = np.asarray(fine_mod.fine_spmm(fdev, jnp.asarray(B)))
-    np.testing.assert_allclose(Cf, _dense_oracle(m, B), rtol=1e-3, atol=1e-3)
-
-
-def test_combine_chunk_overrun_rejected():
-    """A combine chunk larger than the layout's safety tail must be
-    rejected up front (the kernel's last chunk deliberately overruns into
-    the tail; oversized C would read out of bounds)."""
-    m = rmat_csr(8, edge_factor=4, seed=9)
-    dev = FineDevice.from_csr(m, dtype=jnp.float32, tile_rows=128, chunk=256)
-    contrib = jnp.zeros((dev.n_slots, 128), jnp.float32)
-    with pytest.raises(ValueError, match="safety slots"):
-        mask_combine(dev.tptr, dev.rows2d, contrib, dev.padded_rows,
-                     R=dev.tile_rows, C=2048)
-    ddev = DedupDevice.from_csr(m, dtype=jnp.float32, chunk=256)
-    bg = jnp.zeros((ddev.n_slots, 128), jnp.float32)
-    with pytest.raises(ValueError, match="safety slots"):
-        dedup_combine(ddev.tptr, ddev.W, bg, ddev.padded_rows,
-                      R=ddev.tile_rows, C=2048)
-
-
 def test_fine_spmm_int8_gather_accuracy():
-    """b_int8 gathers a per-lane int8 quantization of B: half the gather
+    """b_int8 gathers a per-column int8 quantization of B: half the gather
     traffic at ~1e-3 normalized error (mirrors dedup_spmm's option)."""
     m = rmat_csr(9, edge_factor=8, seed=4)
     rng = np.random.default_rng(2)

@@ -147,7 +147,7 @@ def test_two_process_partitioned_reorder_spmm():
 WORKER_HYBRID = """
 import os, sys
 os.environ["JAX_PLATFORMS"] = "cpu"
-# 4 local devices per process -> 8 global: the DCN (process) x ICI (device)
+# 4 local devices per process -> 8 global: the process x local-device
 # analog of a 2-host pod slice
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path.insert(0, {repo!r})
@@ -184,7 +184,7 @@ g_global = np.asarray(
     jax.jit(lambda a: a, out_shardings=NamedSharding(mesh, P()))(g_arr))
 
 # colsplit + reduce_scatter over the FULL 8-device mesh: each chip holds a
-# K-slice; partial products psum_scatter across DCN+ICI, C lands row-sharded
+# K-slice; partial products psum_scatter across processes and devices, C lands row-sharded
 bell = bell_from_csr(m, get_fixed_size_grouping(g_global, 8),
                      block_row_size=8)
 bell_p = pad_block_rows(bell, 8)
@@ -219,7 +219,7 @@ print("CHECK", chk, flush=True)
 
 
 def test_hybrid_two_process_four_device_colsplit():
-    """DCN x ICI hybrid: 2 processes x 4 local devices = 8 global devices.
+    """Process x device hybrid: 2 processes x 4 local devices = 8 global devices.
     Per-host partitioned reorder + grouping allgather, then the colsplit
     SpMM with psum_scatter across the full hybrid mesh, vs a local oracle."""
     with socket.socket() as s:

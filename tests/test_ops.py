@@ -1,4 +1,4 @@
-"""Device SpMM tests (CPU backend; Pallas in interpret mode).
+"""Device SpMM tests (CPU backend; the Triton kernel in interpret mode).
 
 Oracle = host serial multiply / scipy, as in the reference's TEST_cuda
 memcmp strategy but with tolerances (fp32 accumulate).
@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sparta_tpu.formats import bell_from_csr, random_block_csr, random_uniform_csr
+from sparta_tpu.formats import bell_from_csr, random_block_csr, random_uniform_csr  # noqa: F401
 from sparta_tpu.ops import (
     BellDevice,
     EllDevice,
     bcoo_spmm,
-    bell_spmm_pallas,
+    bell_spmm_triton,
     bell_spmm_xla,
     bell_spmm_xla_ba,
     bell_spmm_xla_unrolled,
@@ -75,18 +75,62 @@ def test_bell_spmm_ba(problem):
     np.testing.assert_allclose(np.asarray(C)[:, : m.cols], C_ref2, rtol=1e-4, atol=1e-4)
 
 
-def test_bell_spmm_pallas_interpret(problem):
-    m, bell, B, C_ref = problem
+@pytest.fixture(scope="module")
+def problem16():
+    """The kernel's tile rule wants power-of-two blocks of at least 16."""
+    m = random_block_csr(256, 256, block=16, block_density=0.15,
+                         intra_density=0.7, seed=3)
+    bell = bell_from_csr(m, np.arange(256) // 16, block_row_size=16)
+    B = np.random.default_rng(0).standard_normal((256, 64)).astype(np.float32)
+    return m, bell, B, m.to_scipy() @ B
+
+
+def _ragged_bell(b=16, nbr=12, nbc=12, seed=4):
+    """Heavy-tailed row block counts, empty rows included."""
+    from sparta_tpu.formats import BELL
+
+    rng = np.random.default_rng(seed)
+    nb_row = np.array([nbc, 1, 0, 2, 1, 1, 8, 1, 0, 1, 2, 1][:nbr],
+                      dtype=np.int32)
+    max_nb = int(nb_row.max())
+    cols = np.full((nbr, max_nb), -1, dtype=np.int32)
+    vals = np.zeros((nbr, max_nb, b, b), dtype=np.float32)
+    dense = np.zeros((nbr * b, nbc * b), dtype=np.float32)
+    for r in range(nbr):
+        sel = np.sort(rng.choice(nbc, size=nb_row[r], replace=False))
+        cols[r, : sel.size] = sel
+        for t, jb in enumerate(sel):
+            blk = rng.standard_normal((b, b)).astype(np.float32)
+            vals[r, t] = blk
+            dense[r*b:(r+1)*b, jb*b:(jb+1)*b] = blk
+    bell = BELL(cols_idx=cols, nb_row=nb_row, vals=vals,
+                row_perm=np.arange(nbr * b), block_row_size=b,
+                block_col_size=b, shape=(nbr * b, nbc * b),
+                orig_shape=(nbr * b, nbc * b))
+    return bell, dense
+
+
+def test_bell_spmm_pallas_interpret(problem16):
+    m, bell, B, C_ref = problem16
     dev = BellDevice.from_host(bell)
-    C = bell_spmm_pallas(dev, pad_b_for_bell(B, bell), tn=64, interpret=True)
+    C = bell_spmm_triton(dev, pad_b_for_bell(B, bell), interpret=True)
     np.testing.assert_allclose(np.asarray(C)[: m.rows], C_ref, rtol=1e-4, atol=1e-4)
 
 
-def test_bell_spmm_pallas_multiple_col_tiles(problem):
-    m, bell, B, C_ref = problem
-    dev = BellDevice.from_host(bell)
-    C = bell_spmm_pallas(dev, pad_b_for_bell(B, bell), tn=32, interpret=True)
-    np.testing.assert_allclose(np.asarray(C)[: m.rows], C_ref, rtol=1e-4, atol=1e-4)
+@pytest.mark.parametrize("N", [256, 300])
+def test_bell_spmm_pallas_multiple_col_tiles(problem16, N):
+    """N wider than the column tile: several N tiles, the last one ragged
+    when N is not a multiple of it."""
+    from sparta_tpu.ops.blocked import TILE_N
+
+    assert N > TILE_N
+    m, bell, _, _ = problem16
+    B = np.random.default_rng(N).standard_normal((256, N)).astype(np.float32)
+    C = bell_spmm_triton(BellDevice.from_host(bell), jnp.asarray(B),
+                         interpret=True)
+    assert C.shape == (bell.shape[0], N)
+    np.testing.assert_allclose(np.asarray(C)[: m.rows], m.to_scipy() @ B,
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_bell_spmm_pallas_empty_rows():
@@ -96,11 +140,11 @@ def test_bell_spmm_pallas_empty_rows():
     r = np.array([1, 3, 60, 63])
     c = np.array([5, 40, 2, 63])
     m = CSR.from_coo(r, c, np.ones(4, dtype=np.float32), (64, 64))
-    bell = bell_from_csr(m, None, block_row_size=8)
+    bell = bell_from_csr(m, None, block_row_size=16)
     assert (bell.nb_row == 0).any()
     B = np.random.default_rng(3).standard_normal((64, 16)).astype(np.float32)
-    C = bell_spmm_pallas(BellDevice.from_host(bell), pad_b_for_bell(B, bell),
-                         tn=16, interpret=True)
+    C = bell_spmm_triton(BellDevice.from_host(bell), pad_b_for_bell(B, bell),
+                         interpret=True)
     C_ref = m.to_scipy() @ B
     np.testing.assert_allclose(np.asarray(C)[: m.rows], C_ref, rtol=1e-4, atol=1e-4)
 
@@ -115,8 +159,8 @@ def test_csr_baselines(problem):
 
 def test_bcoo_spmm_wide_scan_under_jit(problem):
     """B wider than the slab limit runs slabs under lax.scan so a jitted
-    caller traces ONE slab-sized scatter program (the remote-compile 500
-    workaround must survive outer jit)."""
+    caller traces ONE slab-sized scatter program (the slab bound must
+    survive an outer jit)."""
     m, bell, B, C_ref = problem
     A = csr_to_bcoo(m)
     Bw = jnp.asarray(np.tile(B, (1, max(1024 // B.shape[1], 2))))
@@ -142,137 +186,95 @@ def test_bf16_matched_accuracy(problem):
     assert rel < 1e-2
 
 
-def test_bell_spmm_compact(problem):
-    from sparta_tpu.ops import BellCompactDevice, bell_spmm_pallas_compact
+def test_bell_spmm_bcache(problem16):
+    """The routed entry point: the kernel under interpret, XLA otherwise,
+    same result."""
+    from sparta_tpu.ops import blocked_spmm
 
-    m, bell, B, C_ref = problem
-    dev = BellCompactDevice.from_host(bell)
-    C = np.asarray(bell_spmm_pallas_compact(dev, jnp.asarray(B), tn=32))
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
-
-
-def test_bell_spmm_bcache(problem):
-    from sparta_tpu.ops import bell_spmm_pallas_bcache
-
-    m, bell, B, C_ref = problem
+    m, bell, B, C_ref = problem16
     dev = BellDevice.from_host(bell)
-    C = np.asarray(bell_spmm_pallas_bcache(dev, jnp.asarray(B), tn=32))
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+    for interpret in (False, True):
+        C = np.asarray(blocked_spmm(dev, jnp.asarray(B), interpret=interpret))
+        np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("rows_per_step", [1, 2, 4])
-def test_bell_spmm_compact_multirow(problem, rows_per_step):
-    from sparta_tpu.ops import (
-        BellCompactDevice,
-        bell_spmm_pallas_compact_multirow,
-    )
-
-    m, bell, B, C_ref = problem
-    dev = BellCompactDevice.from_host(bell).pad_rows(rows_per_step)
-    C = np.asarray(
-        bell_spmm_pallas_compact_multirow(
-            dev, jnp.asarray(B), tn=32, rows_per_step=rows_per_step
-        )
-    )
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+def test_bell_spmm_compact_multirow(rows_per_step):
+    """Row tiles smaller than the block (bm = bh / rows_per_step): each
+    block-row runs as several programs."""
+    m = random_block_csr(256, 256, block=64, block_density=0.3,
+                         intra_density=0.6, seed=5)
+    bell = bell_from_csr(m, None, block_row_size=64)
+    B = np.random.default_rng(1).standard_normal((256, 32)).astype(np.float32)
+    C = np.asarray(bell_spmm_triton(
+        BellDevice.from_host(bell), jnp.asarray(B),
+        bm=64 // rows_per_step, interpret=True))
+    np.testing.assert_allclose(C[:256], m.to_scipy() @ B, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_bell_spmm_compact_multirow_padded_rows():
-    """Padding block-rows (from pad_rows) must produce zero output rows."""
-    from sparta_tpu.ops import (
-        BellCompactDevice,
-        bell_spmm_pallas_compact_multirow,
-    )
+    """Padding block-rows (from pad_block_rows) produce zero output rows."""
+    from sparta_tpu.parallel import pad_block_rows
 
-    m = random_block_csr(80, 80, block=8, block_density=0.3, intra_density=0.7,
-                         seed=11)
-    bell = bell_from_csr(m, np.arange(80) // 8, block_row_size=8)
-    dev = BellCompactDevice.from_host(bell).pad_rows(4)  # 10 -> 12 rows
-    B = np.random.default_rng(1).standard_normal((80, 32)).astype(np.float32)
-    C = np.asarray(
-        bell_spmm_pallas_compact_multirow(dev, jnp.asarray(B), tn=32,
-                                          rows_per_step=4)
-    )
-    np.testing.assert_allclose(C[:80], m.to_scipy() @ B, rtol=1e-5, atol=1e-5)
+    m = random_block_csr(80, 80, block=16, block_density=0.3,
+                         intra_density=0.7, seed=11)
+    bell = pad_block_rows(bell_from_csr(m, None, block_row_size=16), 4)
+    assert bell.n_block_rows == 8
+    B = np.random.default_rng(1).standard_normal((bell.shape[1], 32)).astype(
+        np.float32)
+    C = np.asarray(bell_spmm_triton(BellDevice.from_host(bell),
+                                    jnp.asarray(B), interpret=True))
+    np.testing.assert_allclose(C[:80], m.to_scipy() @ B[:80], rtol=1e-5,
+                               atol=1e-5)
     assert np.all(C[80:] == 0)
 
 
-@pytest.mark.parametrize("chunk,nslots", [(2, 2), (4, 2), (4, 4)])
-def test_bell_spmm_compact_chunked(problem, chunk, nslots):
-    from sparta_tpu.ops import (
-        BellCompactDevice,
-        bell_spmm_pallas_compact_chunked,
-    )
-
-    m, bell, B, C_ref = problem
-    dev = BellCompactDevice.from_host(bell).pad_blocks(chunk * nslots)
-    C = np.asarray(
-        bell_spmm_pallas_compact_chunked(
-            dev, jnp.asarray(B), tn=32, chunk=chunk, nslots=nslots
-        )
-    )
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("N", [1, 17, 48, 100])
+def test_bell_spmm_compact_chunked(problem16, N):
+    """Any operand width: N pads up to the column tile and slices back."""
+    m, bell, B, C_ref = problem16
+    Bn = np.random.default_rng(N).standard_normal((256, N)).astype(np.float32)
+    C = np.asarray(bell_spmm_triton(BellDevice.from_host(bell),
+                                    jnp.asarray(Bn), interpret=True))
+    assert C.shape == (bell.shape[0], N)
+    np.testing.assert_allclose(C[: m.rows], m.to_scipy() @ Bn, rtol=1e-4,
+                               atol=1e-4)
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 4])
-def test_bell_spmm_compact_unrolled(problem, chunk):
-    from sparta_tpu.ops import (
-        bell_spmm_pallas_compact_unrolled,
-        compact_from_host_padded,
-    )
-
-    m, bell, B, C_ref = problem
-    dev = compact_from_host_padded(bell, chunk)
-    C = np.asarray(
-        bell_spmm_pallas_compact_unrolled(dev, jnp.asarray(B), tn=32,
-                                          chunk=chunk)
-    )
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("N", [16, 40, 64])
+def test_bell_spmm_compact_unrolled(problem16, N):
+    """Operands narrower than the column tile: one tile as wide as N (to
+    the next power of two), padded and sliced back."""
+    m, bell, _, _ = problem16
+    B = np.random.default_rng(N).standard_normal((256, N)).astype(np.float32)
+    C = np.asarray(bell_spmm_triton(BellDevice.from_host(bell),
+                                    jnp.asarray(B), bm=16, interpret=True))
+    np.testing.assert_allclose(C[: m.rows], m.to_scipy() @ B, rtol=1e-5,
+                               atol=1e-5)
 
 
-def test_bell_spmm_compact_gather(problem):
-    from sparta_tpu.ops import (
-        BellCompactDevice,
-        bell_spmm_pallas_compact_gather,
-    )
-
-    m, bell, B, C_ref = problem
-    dev = BellCompactDevice.from_host(bell)
-    C = np.asarray(
-        bell_spmm_pallas_compact_gather(dev, jnp.asarray(B), tn=32)
-    )
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+def test_bell_spmm_compact_gather():
+    """Large K relative to the stored blocks (the old huge-K layouts): the
+    kernel reads only the stripes its blocks name."""
+    m = random_block_csr(64, 2048, block=16, block_density=0.02,
+                         intra_density=0.8, seed=2)
+    bell = bell_from_csr(m, None, block_row_size=16)
+    B = np.random.default_rng(2).standard_normal((2048, 32)).astype(
+        np.float32)
+    C = np.asarray(bell_spmm_triton(BellDevice.from_host(bell),
+                                    jnp.asarray(B), interpret=True))
+    np.testing.assert_allclose(C[:64], m.to_scipy() @ B, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_bell_spmm_compact_gather_ragged():
-    """Heavy-tailed row block counts (the layout ELL can't afford)."""
-    from sparta_tpu.formats import BELL
-    from sparta_tpu.ops import (
-        BellCompactDevice,
-        bell_spmm_pallas_compact_gather,
-    )
-
-    rng = np.random.default_rng(4)
-    b, nbr, nbc = 8, 12, 12
-    nb_row = np.array([nbc, 1, 0, 2, 1, 1, 8, 1, 0, 1, 2, 1], dtype=np.int32)
-    max_nb = int(nb_row.max())
-    cols = np.full((nbr, max_nb), -1, dtype=np.int32)
-    vals = np.zeros((nbr, max_nb, b, b), dtype=np.float32)
-    dense = np.zeros((nbr * b, nbc * b), dtype=np.float32)
-    for r in range(nbr):
-        sel = np.sort(rng.choice(nbc, size=nb_row[r], replace=False))
-        cols[r, : sel.size] = sel
-        for t, jb in enumerate(sel):
-            blk = rng.standard_normal((b, b)).astype(np.float32)
-            vals[r, t] = blk
-            dense[r*b:(r+1)*b, jb*b:(jb+1)*b] = blk
-    bell = BELL(cols_idx=cols, nb_row=nb_row, vals=vals,
-                row_perm=np.arange(nbr * b), block_row_size=b,
-                block_col_size=b, shape=(nbr * b, nbc * b),
-                orig_shape=(nbr * b, nbc * b))
-    dev = BellCompactDevice.from_host(bell)
-    B = rng.standard_normal((nbc * b, 32)).astype(np.float32)
-    C = np.asarray(bell_spmm_pallas_compact_gather(dev, jnp.asarray(B), tn=32))
+    """Heavy-tailed row block counts, empty rows included."""
+    bell, dense = _ragged_bell()
+    B = np.random.default_rng(5).standard_normal((bell.shape[1], 32)).astype(
+        np.float32)
+    C = np.asarray(bell_spmm_triton(BellDevice.from_host(bell),
+                                    jnp.asarray(B), interpret=True))
     np.testing.assert_allclose(C, dense @ B, rtol=1e-5, atol=1e-5)
 
 
@@ -280,145 +282,69 @@ def test_plan_spmm_selection_and_correctness(problem):
     from sparta_tpu.ops import plan_spmm
 
     m, bell, B, C_ref = problem
-    # 8x8 blocks are not MXU-tileable -> XLA path
+    # 8x8 blocks are not kernel-tileable -> XLA path
     plan = plan_spmm(bell, 64)
     assert plan.backend == "bell_xla"
     C = np.asarray(plan(jnp.asarray(B[:, :64])))
     np.testing.assert_allclose(C[: m.rows], C_ref[:, :64], rtol=1e-5, atol=1e-5)
 
 
-def test_plan_spmm_unrolled_and_gather_paths():
-    from sparta_tpu.formats import bell_from_csr, random_block_csr
-    from sparta_tpu.ops import pad_b_for_bell, plan_spmm
+def test_plan_spmm_unrolled_and_gather_paths(monkeypatch):
+    """Every candidate builds and computes the same product; off the GPU
+    the rule never picks the kernel."""
+    import sparta_tpu.ops.select as sel
 
     m = random_block_csr(512, 512, block=128, block_density=0.3,
                          intra_density=0.3, seed=6)
     bell = bell_from_csr(m, None, block_row_size=128)
     B = np.random.default_rng(1).standard_normal((512, 128)).astype(np.float32)
     C_ref = m.to_scipy() @ B
-
-    import sparta_tpu.ops.select as sel
-
-    # force each candidate through the cost model; both must be correct
-    old_gather, old_budget = sel._model_gather_s, sel.VMEM_BUDGET
-    old_dense = sel._DENSE_TPS
-    try:
-        sel._DENSE_TPS = 1.0  # dense candidate out of the running
-        sel._model_gather_s = lambda *a, **k: 1e9  # force unrolled
-        plan = sel.plan_spmm(bell, 128)
-        assert "unrolled" in plan.backend, plan.backend
+    assert sel._candidates(bell, jnp.float32) == ["xla", "dense"]
+    assert sel.plan_spmm(bell, 128).backend == "bell_xla"
+    for kind in ("xla", "dense"):
+        plan = sel._build_plan(bell, kind, jnp.float32)
         C = np.asarray(plan(jnp.asarray(pad_b_for_bell(B, bell))))
         np.testing.assert_allclose(C[:512], C_ref, rtol=1e-4, atol=1e-4)
 
-        sel._model_gather_s = old_gather
-        sel.VMEM_BUDGET = 1  # force the large-K path
-        plan = sel.plan_spmm(bell, 128)
-        assert "gather" in plan.backend, plan.backend
-        C = np.asarray(plan(jnp.asarray(pad_b_for_bell(B, bell))))
-        np.testing.assert_allclose(C[:512], C_ref, rtol=1e-4, atol=1e-4)
-    finally:
-        sel._model_gather_s = old_gather
-        sel.VMEM_BUDGET = old_budget
-        sel._DENSE_TPS = old_dense
+
+@pytest.mark.parametrize("backend,bh,bw,interpret,want", [
+    ("cpu", 128, 128, False, "xla"),
+    ("cpu", 128, 128, True, "triton"),
+    ("gpu", 128, 128, False, "triton"),
+    ("gpu", 16, 64, False, "triton"),
+    ("gpu", 8, 128, False, "xla"),
+    ("gpu", 128, 96, False, "xla"),
+    ("gpu", 3, 3, True, "xla"),
+])
+def test_spmm_route(monkeypatch, backend, bh, bw, interpret, want):
+    """The one routing function: the kernel on the GPU (or when a test asks
+    for the interpreter), XLA on the CPU and for untileable blocks."""
+    import sparta_tpu.ops.blocked as blk
+
+    monkeypatch.setattr(blk.jax, "default_backend", lambda: backend)
+    assert blk.spmm_route(bh, bw, interpret) == want
 
 
-def test_compact_optimal_chunk_is_exact_argmin():
-    """compact_optimal_chunk minimizes the padded-dot + loop-iteration cost
-    exactly over the row histogram (brute-force check), and never models
-    worse than the mean heuristic."""
-    from sparta_tpu.ops import compact_auto_chunk
-    from sparta_tpu.ops.bell_compact import compact_optimal_chunk
+def test_xla_route_overrides_gpu(monkeypatch):
+    import sparta_tpu.ops.blocked as blk
 
-    dot_s, iter_s = 93e-9, 115e-9
-
-    def cost(nb, c):
-        nb = np.asarray(nb, np.int64)
-        nb = nb[nb > 0]
-        return float((np.ceil(nb / c) * (c * dot_s + iter_s)).sum())
-
-    rng = np.random.default_rng(0)
-    dists = [
-        rng.poisson(6.4, 80) + 1,                       # planted-block-like
-        (rng.pareto(1.2, 200) + 1).astype(int),         # power-law tail
-        np.full(50, 3),                                 # uniform small
-        np.r_[np.full(99, 1), [400]],                   # one huge row
-        rng.integers(1, 30, 64),
-    ]
-    for nb in dists:
-        c_star = compact_optimal_chunk(nb, dot_s, iter_s)
-        brute = min(range(1, 9), key=lambda c: cost(nb, c))
-        assert cost(nb, c_star) == pytest.approx(cost(nb, brute))
-        c_heur = compact_auto_chunk(nb)
-        assert cost(nb, c_star) <= cost(nb, c_heur) + 1e-12
-
-    # degenerate inputs
-    assert compact_optimal_chunk([]) == 2
-    assert compact_optimal_chunk([0, 0]) == 2
-    assert 1 <= compact_optimal_chunk([1]) <= 8
-
-
-def test_plan_spmm_models_both_chunks_and_optimal_chunk_runs():
-    """_candidate_plans emits an unrolled candidate per distinct chunk
-    (heuristic + exact argmin) on a heavy-tailed matrix, and a plan built
-    with the optimal chunk computes correctly."""
-    from sparta_tpu.formats import BELL
-    from sparta_tpu.ops import pad_b_for_bell
-    from sparta_tpu.ops.bell_compact import compact_optimal_chunk
-
-    import sparta_tpu.ops.select as sel
-
-    # heavy-tailed block rows: most rows 1 block, one row with many —
-    # the mean heuristic and the exact argmin disagree here
-    rng = np.random.default_rng(3)
-    b, nbr, nbc = 128, 12, 16
-    nb_row = np.r_[np.full(nbr - 1, 1), [12]].astype(np.int64)
-    cols_idx = np.full((nbr, nb_row.max()), -1, np.int64)
-    for i, nb in enumerate(nb_row):
-        cols_idx[i, :nb] = np.sort(rng.choice(nbc, nb, replace=False))
-    vals = rng.standard_normal((nbr, nb_row.max(), b, b)).astype(np.float32)
-    vals[cols_idx < 0] = 0.0
-    bell = BELL(cols_idx=cols_idx, vals=vals, nb_row=nb_row,
-                row_perm=np.arange(nbr * b), block_row_size=b,
-                block_col_size=b, shape=(nbr * b, nbc * b),
-                orig_shape=(nbr * b, nbc * b))
-
-    c_heur = sel.compact_auto_chunk(nb_row)
-    c_opt = compact_optimal_chunk(nb_row, sel._DOT512_S, sel._ITER_S)
-    assert c_heur != c_opt, "fixture no longer separates the two policies"
-
-    cands = sel._candidate_plans(bell, 128, jnp.float32, 128)
-    unrolled_chunks = {c for _, kind, _, _, c in cands if kind == "unrolled"}
-    assert unrolled_chunks == {c_heur, c_opt}
-
-    # the optimal-chunk plan must compute the right product
-    plan = sel._build_plan(bell, "unrolled", 128, 1, c_opt, jnp.float32)
-    assert f"c{c_opt}" in plan.backend
-    dense = np.zeros(bell.shape, np.float32)
-    for i, nb in enumerate(nb_row):
-        for j in range(nb):
-            jc = cols_idx[i, j]
-            dense[i * b:(i + 1) * b, jc * b:(jc + 1) * b] = vals[i, j]
-    B = rng.standard_normal((bell.shape[1], 128)).astype(np.float32)
-    C = np.asarray(plan(jnp.asarray(pad_b_for_bell(B[: bell.shape[1]], bell))))
-    np.testing.assert_allclose(C, dense @ B, rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(blk.jax, "default_backend", lambda: "gpu")
+    assert blk.spmm_route(128, 128) == "triton"
+    with blk.xla_route():
+        assert blk.spmm_route(128, 128) == "xla"
+        assert blk.spmm_route(128, 128, interpret=True) == "triton"
+    assert blk.spmm_route(128, 128) == "triton"
 
 
 def test_plan_spmm_autotune_cache_roundtrip(tmp_path, monkeypatch):
     """Autotuned winners persist: the second plan_spmm for the same
     structure builds straight from the cache (no re-measurement), and a
     cached plan computes correctly."""
-    from sparta_tpu.formats import bell_from_csr, random_block_csr
-    from sparta_tpu.ops import pad_b_for_bell
-
     import sparta_tpu.bench.timing as timing
     import sparta_tpu.ops.select as sel
 
     monkeypatch.setenv("SPARTA_TPU_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
-    # bypass the cpu gate so the autotune branch runs (time_op works on
-    # the CPU backend; the cache logic is backend-agnostic)
-    monkeypatch.setattr(sel.jax, "default_backend", lambda: "tpu")
-
     m = random_block_csr(512, 512, block=128, block_density=0.3,
                          intra_density=0.3, seed=6)
     bell = bell_from_csr(m, None, block_row_size=128)
@@ -435,7 +361,7 @@ def test_plan_spmm_autotune_cache_roundtrip(tmp_path, monkeypatch):
 
     monkeypatch.setattr(timing, "time_op", counting_time_op)
     plan1 = sel.plan_spmm(bell, 128, autotune=True)
-    assert calls, "first call must measure"
+    assert len(calls) == 2, "both candidates (xla, dense) are measured"
     assert (tmp_path / "autotune.json").exists()
 
     calls.clear()
@@ -450,139 +376,149 @@ def test_plan_spmm_autotune_cache_roundtrip(tmp_path, monkeypatch):
     assert calls
 
 
-@pytest.mark.parametrize("relu", [False, True])
-def test_bell_spmm_unrolled_epilogue(problem, relu):
-    from sparta_tpu.ops import (
-        bell_spmm_pallas_compact_unrolled_epilogue,
-        compact_from_host_padded,
-    )
+def test_autotune_off_gpu_by_default(monkeypatch):
+    """plan_spmm measures only on the GPU unless asked."""
+    import sparta_tpu.bench.timing as timing
+    import sparta_tpu.ops.select as sel
 
-    m, bell, B, C_ref = problem
-    dev = compact_from_host_padded(bell, 2)
-    nbr_rows = dev.row_ptr.shape[0] - 1
-    bh = bell.block_row_size
-    bias = np.random.default_rng(9).standard_normal(nbr_rows * bh).astype(np.float32)
-    C = np.asarray(
-        bell_spmm_pallas_compact_unrolled_epilogue(
-            dev, jnp.asarray(B), jnp.asarray(bias), tn=32, chunk=2, relu=relu
-        )
-    )
+    def boom(*a, **k):
+        raise AssertionError("measured on the CPU")
+
+    monkeypatch.setattr(timing, "time_op", boom)
+    m = random_block_csr(256, 256, block=128, block_density=0.5, seed=2)
+    bell = bell_from_csr(m, None, block_row_size=128)
+    assert sel.plan_spmm(bell, 128).backend in ("bell_xla",
+                                                "bell_densified_gemm")
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_bell_spmm_unrolled_epilogue(problem16, relu):
+    m, bell, B, C_ref = problem16
+    bias = np.random.default_rng(9).standard_normal(bell.shape[0]).astype(
+        np.float32)
+    C = np.asarray(bell_spmm_triton(
+        BellDevice.from_host(bell), jnp.asarray(B), bias=jnp.asarray(bias),
+        relu=relu, interpret=True))
     want = C_ref + bias[: m.rows, None]
     if relu:
         want = np.maximum(want, 0)
     np.testing.assert_allclose(C[: m.rows], want, rtol=1e-5, atol=1e-5)
 
 
-def test_bell_spmm_compact_chunked_requires_padding(problem):
-    from sparta_tpu.ops import (
-        BellCompactDevice,
-        bell_spmm_pallas_compact_chunked,
-    )
+@pytest.mark.parametrize("which", ["row", "col", "stripe"])
+def test_epilogue_scales_match_xla(problem16, which):
+    """row / column scales in the epilogue and per-(stripe, column) scales
+    in the loop: the kernel and the plain XLA route agree."""
+    from sparta_tpu.ops import blocked_spmm
 
-    m, bell, B, C_ref = problem
-    dev = BellCompactDevice.from_host(bell)  # no safety padding
-    with pytest.raises(ValueError, match="safety padding"):
-        bell_spmm_pallas_compact_chunked(dev, jnp.asarray(B), tn=32, chunk=2)
+    m, bell, B, C_ref = problem16
+    rng = np.random.default_rng(3)
+    kw = {"row": {"row_scale": rng.random(bell.shape[0])},
+          "col": {"col_scale": rng.random(64)},
+          "stripe": {"stripe_scale": rng.random((bell.n_block_cols, 64))},
+          }[which]
+    kw = {k: jnp.asarray(v, jnp.float32) for k, v in kw.items()}
+    dev = BellDevice.from_host(bell)
+    got = np.asarray(blocked_spmm(dev, jnp.asarray(B), interpret=True, **kw))
+    want = np.asarray(blocked_spmm(dev, jnp.asarray(B), **kw))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bell_spmm_compact_chunked_requires_padding(problem16):
+    """Mismatched operand dtypes are refused, not silently cast."""
+    m, bell, B, C_ref = problem16
+    with pytest.raises(ValueError, match="but B is"):
+        bell_spmm_triton(BellDevice.from_host(bell),
+                         jnp.asarray(B, jnp.bfloat16), interpret=True)
 
 
 def test_int8_backend_falls_back_on_vmem(tmp_path):
-    # huge-K matrix: the int8 resident-B tile would blow VMEM; the runner
-    # must fall through to the bf16 plan instead of faulting the dispatch
+    """-M 8 --dtype int8 runs the quantized blocked product at any K (no
+    device-memory budget gates it any more)."""
     from sparta_tpu.bench.runner import make_backend
     from sparta_tpu.cli import parse_args
     from sparta_tpu.formats import random_uniform_csr
     from sparta_tpu.reorder import BlockingEngine
 
-    K = 40960  # 40960 * 512 bytes > 12MB int8 budget
-    m = random_uniform_csr(256, K, density=0.001, seed=0)
+    K = 4096
+    m = random_uniform_csr(256, K, density=0.002, seed=0)
     cfg = parse_args(["-M", "8", "-F", "1", "-a", "2", "-b", "128",
-                      "-B", "128", "-c", "512", "--dtype", "int8"])
+                      "-B", "128", "-c", "128", "--dtype", "int8"])
     eng = BlockingEngine.from_config(cfg)
     eng.get_grouping(m)
     fn, b_shape, name, flops = make_backend(cfg, m, eng)
-    assert "int8" not in name
+    assert name == "bell_int8_rowcol"
+    B = np.random.default_rng(0).standard_normal(b_shape).astype(np.float32)
+    C = np.asarray(fn(jnp.asarray(B, jnp.bfloat16)), np.float32)
+    assert C.shape[1] == b_shape[1] and np.isfinite(C).all()
 
 
-def test_csr_spmm_auto_regimes():
-    # the auto baseline must be numerically correct whichever execution the
-    # cost model picks; force each regime by patching the model constants
-    import sparta_tpu.ops.csr_spmm as mod
-    import sparta_tpu.ops.fine as fmod
-    from sparta_tpu.formats import random_uniform_csr
+@pytest.mark.parametrize("name", ["dense", "natbell128", "dedup",
+                                  "dedup256"])
+def test_csr_spmm_auto_regimes(name):
+    """Every csr_spmm_auto candidate computes the product through the
+    uniform contract: the logical [K, N] operand in, [M, N] out."""
+    from sparta_tpu.ops.csr_spmm import csr_candidate_fn
 
     m = random_uniform_csr(64, 80, density=0.05, seed=5)
     B = np.random.default_rng(1).standard_normal((80, 128)).astype(np.float32)
-    ref = m.to_dense() @ B
-    orig = (mod._DENSE_TPS, mod._NATBELL_TPS,
-            fmod.GATHER_BPS, fmod.GATHER_BPS_LARGE, fmod.COMBINE_BPS)
-    try:
-        for fast in ("dense", "natbell", "fine"):
-            fine_bps = 1e18 if fast == "fine" else 1.0
-            mod._DENSE_TPS, mod._NATBELL_TPS = (
-                (1e18, 1.0) if fast == "dense"
-                else (1.0, 1e18) if fast == "natbell"
-                else (1.0, 1.0)
-            )
-            fmod.GATHER_BPS = fmod.GATHER_BPS_LARGE = fine_bps
-            fmod.COMBINE_BPS = fine_bps
-            fn, name, flops = mod.csr_spmm_auto(m, 128)
-            assert fast in name, name
-            assert flops > 0
-            # uniform contract: EVERY leg takes the logical [K, N] operand
-            C = np.asarray(fn(jnp.asarray(B)))
-            np.testing.assert_allclose(C[: m.rows, :128], ref, rtol=2e-5,
-                                       atol=2e-5)
-    finally:
-        (mod._DENSE_TPS, mod._NATBELL_TPS,
-         fmod.GATHER_BPS, fmod.GATHER_BPS_LARGE, fmod.COMBINE_BPS) = orig
+    fn, flops = csr_candidate_fn(m, 128, name, with_flops=True)
+    assert flops > 0
+    C = np.asarray(fn(jnp.asarray(B)))
+    np.testing.assert_allclose(C[: m.rows, :128], m.to_dense() @ B,
+                               rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("n_parts", [2, 3])
-def test_bell_spmm_compact_ksplit(problem, n_parts):
-    from sparta_tpu.ops import (
-        bell_spmm_pallas_compact_ksplit,
-        compact_ksplit_from_host,
-    )
+def test_csr_spmm_auto_picks_fewest_work(monkeypatch):
+    """Without measuring, csr_spmm_auto runs the fewest-multiply-add
+    candidate that fits; one that does not fit is never built."""
+    import sparta_tpu.ops.csr_spmm as cs
 
-    m, bell, B, C_ref = problem
-    parts, k_part = compact_ksplit_from_host(bell, n_parts, chunk=2)
-    C = np.asarray(bell_spmm_pallas_compact_ksplit(
-        parts, k_part, bell.block_col_size, jnp.asarray(B), tn=32, chunk=2))
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+    m = random_uniform_csr(64, 64, density=0.9, seed=1)
+    table, aux = cs.csr_work_table(m, 128)
+    assert aux["dedup256_n_uniq"] <= aux["dedup_n_uniq"]
+    fn, name, flops = cs.csr_spmm_auto(m, 128)
+    assert name == cs._backend_name(min(table, key=table.get))
+    inf = float("inf")
+    only_dense = {k: (1.0 if k == "dense" else inf) for k in table}
+    monkeypatch.setattr(cs, "csr_work_table", lambda *a: (only_dense, aux))
+    fn, name, flops = cs.csr_spmm_auto(m, 128)
+    assert name == "csr_auto_dense" and flops == 2 * 64 * 64 * 128
+    B = np.random.default_rng(0).standard_normal((64, 128)).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(fn(jnp.asarray(B))),
+                               m.to_dense() @ B, rtol=1e-4, atol=1e-4)
 
 
-def test_plan_spmm_ksplit_path():
-    # huge-K forcing: VMEM budget shrunk so only the K-split candidate fits
+@pytest.mark.parametrize("K", [1024, 2048])
+def test_bell_spmm_compact_ksplit(K):
+    """Wide contraction, blocks spread over the whole K range."""
+    m = random_block_csr(128, K, block=16, block_density=0.05,
+                         intra_density=0.5, seed=K)
+    bell = bell_from_csr(m, None, block_row_size=16)
+    B = np.random.default_rng(2).standard_normal((K, 32)).astype(np.float32)
+    C = np.asarray(bell_spmm_triton(BellDevice.from_host(bell),
+                                    jnp.asarray(B), interpret=True))
+    np.testing.assert_allclose(C[:128], m.to_scipy() @ B, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_plan_spmm_ksplit_path(monkeypatch):
+    """Densification is refused when the dense A would exceed the cap
+    derived from device memory."""
     import sparta_tpu.ops.select as sel
-    from sparta_tpu.formats import bell_from_csr, random_block_csr
-    from sparta_tpu.ops import pad_b_for_bell
 
-    m = random_block_csr(1024, 1024, block=128, block_density=0.3,
-                         intra_density=0.4, seed=9)
+    assert sel.densify_bytes_cap() > 0
+    m = random_block_csr(256, 256, block=128, block_density=0.5, seed=9)
     bell = bell_from_csr(m, None, block_row_size=128)
-    B = np.random.default_rng(2).standard_normal((1024, 128)).astype(np.float32)
-    C_ref = m.to_scipy() @ B
-    old_b, old_g = sel.VMEM_BUDGET, sel._model_gather_s
-    old_dense = sel._DENSE_TPS
-    try:
-        sel.VMEM_BUDGET = 700 * 1024  # full K misses; a ~3-part slice fits
-        sel._DENSE_TPS = 1.0
-        sel._model_gather_s = lambda *a, **k: 1e9
-        plan = sel.plan_spmm(bell, 128)
-        assert "ksplit" in plan.backend, plan.backend
-        C = np.asarray(plan(jnp.asarray(pad_b_for_bell(B, bell))))
-        np.testing.assert_allclose(C[:1024], C_ref, rtol=1e-4, atol=1e-4)
-    finally:
-        sel.VMEM_BUDGET, sel._model_gather_s = old_b, old_g
-        sel._DENSE_TPS = old_dense
+    assert "dense" in sel._candidates(bell, jnp.float32)
+    monkeypatch.setattr(sel, "densify_bytes_cap", lambda: 1)
+    assert "dense" not in sel._candidates(bell, jnp.float32)
 
 
 def test_plan_spmm_dense_fallback():
-    # near-full block occupancy: the densified-GEMM candidate must win and
-    # be numerically correct
+    # full block occupancy: the densified-GEMM candidate wins the rule and
+    # is numerically correct
     import sparta_tpu.ops.select as sel
-    from sparta_tpu.formats import bell_from_csr, random_uniform_csr
-    from sparta_tpu.ops import pad_b_for_bell
 
     m = random_uniform_csr(512, 512, density=0.2, seed=8)  # all blocks hit
     bell = bell_from_csr(m, None, block_row_size=128)
@@ -596,14 +532,24 @@ def test_plan_spmm_dense_fallback():
 
 
 @pytest.mark.parametrize("rows_per_step", [2, 4])
-def test_bell_spmm_compact_unrolled_multirow(problem, rows_per_step):
-    from sparta_tpu.ops.bell_compact import (
-        bell_spmm_pallas_compact_unrolled_multirow,
-        compact_from_host_padded,
-    )
+def test_bell_spmm_compact_unrolled_multirow(rows_per_step):
+    """Ragged rows with the block-row split over several programs."""
+    bell, dense = _ragged_bell(b=64, seed=rows_per_step)
+    B = np.random.default_rng(7).standard_normal((bell.shape[1], 48)).astype(
+        np.float32)
+    C = np.asarray(bell_spmm_triton(
+        BellDevice.from_host(bell), jnp.asarray(B),
+        bm=64 // rows_per_step, interpret=True))
+    np.testing.assert_allclose(C, dense @ B, rtol=1e-4, atol=1e-4)
 
-    m, bell, B, C_ref = problem
-    dev = compact_from_host_padded(bell, 2).pad_rows(rows_per_step)
-    C = np.asarray(bell_spmm_pallas_compact_unrolled_multirow(
-        dev, jnp.asarray(B), tn=32, chunk=2, rows_per_step=rows_per_step))
-    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-5, atol=1e-5)
+
+def test_bell_spmm_kernel_bf16_matches_xla(problem16):
+    """bf16 storage, fp32 accumulation: kernel == XLA path within bf16
+    output rounding."""
+    m, bell, B, C_ref = problem16
+    dev = BellDevice.from_host(bell, dtype=jnp.bfloat16)
+    Bb = jnp.asarray(B, jnp.bfloat16)
+    got = np.asarray(bell_spmm_triton(dev, Bb, interpret=True), np.float32)
+    want = np.asarray(bell_spmm_xla(dev, Bb), np.float32)
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
+    assert np.abs(got[: m.rows] - C_ref).max() / np.abs(C_ref).max() < 1e-2

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from sparta_tpu.formats import bell_from_csr, random_block_csr
-from sparta_tpu.ops import BellDevice, pad_b_for_bell
+from sparta_tpu.ops import pad_b_for_bell
 from sparta_tpu.parallel import (
     make_mesh,
     pad_block_rows,
@@ -128,7 +128,7 @@ def test_vbr_from_partition():
 
 @pytest.fixture(scope="module")
 def problem128():
-    # MXU-tileable blocks so the Pallas path engages under shard_map
+    # kernel-tileable blocks so the Triton path engages under shard_map
     m = random_block_csr(1024, 1024, block=128, block_density=0.3,
                          intra_density=0.4, seed=11, shuffle_rows=False)
     bell = bell_from_csr(m, None, block_row_size=128)
@@ -138,14 +138,14 @@ def problem128():
 
 
 def test_rowsharded_pallas_composition(problem128, mesh):
-    # VERDICT r1 #3: the production Pallas kernel must compose with
-    # shard_map (interpret mode on the CPU mesh; same trace structure on TPU)
+    # the blocked kernel composes with shard_map (the Pallas interpreter on
+    # the CPU mesh; the same kernel trace the GPU compiles)
     m, bell, B, C_ref = problem128
     dev = shard_bell_rowwise(bell, mesh)
     Bd = jax.device_put(
         pad_b_for_bell(B, bell),
         jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
-    C = spmm_rowsharded(dev, Bd, mesh=mesh, use_pallas=True)
+    C = spmm_rowsharded(dev, Bd, mesh=mesh, interpret=True)
     np.testing.assert_allclose(np.asarray(C)[: m.rows], C_ref,
                                rtol=1e-4, atol=1e-4)
 
@@ -156,7 +156,7 @@ def test_ring_pallas_composition(problem128, mesh):
     Bd = jax.device_put(
         pad_b_for_bell(B, bell),
         jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(None, "x")))
-    C = spmm_ring(dev, Bd, mesh, use_pallas=True)
+    C = spmm_ring(dev, Bd, mesh, interpret=True)
     np.testing.assert_allclose(np.asarray(C)[: m.rows], C_ref,
                                rtol=1e-4, atol=1e-4)
 
@@ -173,7 +173,7 @@ def test_colsplit_pallas_composition(problem128, mesh):
     Bparts = Bp.reshape(n, k_part * bw, -1)
     C = spmm_colsplit_reduce_scatter(
         jnp.asarray(ci), jnp.asarray(nb), jnp.asarray(v), Bparts, mesh,
-        use_pallas=True,
+        interpret=True,
     )
     np.testing.assert_allclose(np.asarray(C)[: m.rows], C_ref,
                                rtol=1e-4, atol=1e-4)
@@ -183,8 +183,7 @@ def test_partitioned_reorder_quality_degradation():
     """Per-host reordering quality is bounded: when similar rows are local
     (unshuffled planted blocks) the partition cut costs a few percent; when
     clusters are scattered across parts (shuffled) the worst case is
-    ~n_parts x (each part recovers its own slice of every cluster).
-    Measured table: results/realworld_v5e/partition_quality.csv."""
+    ~n_parts x (each part recovers its own slice of every cluster)."""
     from sparta_tpu.definitions import BlockingType
     from sparta_tpu.parallel import partitioned_reorder
     from sparta_tpu.reorder import BlockingEngine
@@ -212,15 +211,15 @@ def test_partitioned_reorder_quality_degradation():
 
 
 def test_dedup_spmm_rowsharded_matches_oracle():
-    """Fine-grained dedup kernel row-tile-sharded over the mesh: B stays
-    replicated, no collectives, per-shard tile-aligned slot streams."""
+    """Fine-grained dedup path row-tile-sharded over the mesh: B stays
+    replicated, no collectives, per-shard chunk-padded slot streams."""
     from sparta_tpu.formats.csr import rmat_csr
     from sparta_tpu.parallel import dedup_spmm_rowsharded, shard_dedup_rowwise
 
     m = rmat_csr(10, edge_factor=6, seed=3)
     mesh = make_mesh(8)
-    sdev = shard_dedup_rowwise(m, mesh, dtype=jnp.float32, chunk=512)
-    for N in (256, 1024):  # single slab, and wide-N (2 slabs, one pass)
+    sdev = shard_dedup_rowwise(m, mesh, dtype=jnp.float32, chunk=64)
+    for N in (256, 1024):
         B = jnp.asarray(
             np.random.default_rng(0).standard_normal((m.cols, N)).astype(
                 np.float32))
@@ -229,80 +228,55 @@ def test_dedup_spmm_rowsharded_matches_oracle():
         np.testing.assert_allclose(C, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_fused_ring_kernel_matches_oracle_and_ppermute_ring(problem, mesh):
-    """The single-kernel RDMA ring (compute overlapped with the B-shard
-    rotation inside one pallas_call) must reproduce both the scipy oracle
-    and the XLA ppermute ring."""
+def test_ring_kernel_in_shard_map_matches_xla_ring(problem, mesh):
+    """The ppermute ring with the blocked kernel (Pallas interpreter) inside
+    shard_map reproduces the scipy oracle and the same ring on XLA."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from sparta_tpu.parallel import (
-        shard_bell_rowwise,
-        spmm_ring,
-        spmm_ring_pallas,
-    )
 
     m, bell, B, C_ref = problem
     dev = shard_bell_rowwise(bell, mesh)
     Bcol = jax.device_put(jnp.asarray(B),
                           NamedSharding(mesh, P(None, "x")))
-    C = np.asarray(spmm_ring_pallas(dev, Bcol, mesh))
+    C = np.asarray(spmm_ring(dev, Bcol, mesh, interpret=True))
     np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-4, atol=1e-4)
     C2 = np.asarray(spmm_ring(dev, Bcol, mesh))
     np.testing.assert_allclose(C[: m.rows], C2[: m.rows], rtol=1e-5,
                                atol=1e-5)
 
 
-def test_fused_ring_kernel_ring_sizes_and_dtype():
-    """Ring sizes 2 and 8; bf16 storage with fp32 accumulation."""
+@pytest.mark.parametrize("n,dt", [(2, jnp.float32), (4, jnp.float32),
+                                  (8, jnp.bfloat16)])
+def test_ring_sizes_and_dtype(n, dt):
+    """Ring sizes 2, 4 and 8; bf16 storage with fp32 accumulation."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from sparta_tpu.formats import bell_from_csr, random_block_csr
-    from sparta_tpu.parallel import (
-        make_mesh,
-        shard_bell_rowwise,
-        spmm_ring_pallas,
-    )
-
-    for n, dt in ((2, jnp.float32), (8, jnp.bfloat16)):
-        mesh = make_mesh(n)
-        m = random_block_csr(16 * 4 * n, 16 * 4 * n, block=16,
-                             block_density=0.3, seed=9, shuffle_rows=False)
-        bell = bell_from_csr(m, None, block_row_size=16)
-        dev = shard_bell_rowwise(bell, mesh, dtype=dt)
-        N = 16 * n
-        B = np.random.default_rng(1).standard_normal(
-            (bell.shape[1], N)).astype(np.float32)
-        Bcol = jax.device_put(jnp.asarray(B, dtype=dt),
-                              NamedSharding(mesh, P(None, "x")))
-        C = np.asarray(spmm_ring_pallas(dev, Bcol, mesh), np.float32)
-        C_ref = (m.to_scipy() @ B[: m.cols]).astype(np.float32)
-        tol = 1e-4 if dt == jnp.float32 else 0.15
-        np.testing.assert_allclose(C[: m.rows], C_ref, rtol=tol, atol=tol)
+    mesh = make_mesh(n)
+    m = random_block_csr(16 * 4 * n, 16 * 4 * n, block=16,
+                         block_density=0.3, seed=9, shuffle_rows=False)
+    bell = bell_from_csr(m, None, block_row_size=16)
+    dev = shard_bell_rowwise(bell, mesh, dtype=dt)
+    N = 16 * n
+    B = np.random.default_rng(1).standard_normal(
+        (bell.shape[1], N)).astype(np.float32)
+    Bcol = jax.device_put(jnp.asarray(B, dtype=dt),
+                          NamedSharding(mesh, P(None, "x")))
+    C = np.asarray(spmm_ring(dev, Bcol, mesh, interpret=True), np.float32)
+    C_ref = (m.to_scipy() @ B[: m.cols]).astype(np.float32)
+    tol = 1e-4 if dt == jnp.float32 else 0.15
+    np.testing.assert_allclose(C[: m.rows], C_ref, rtol=tol, atol=tol)
 
 
-def test_fused_ring_kernel_rejects_indivisible_n(problem, mesh):
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from sparta_tpu.parallel import shard_bell_rowwise, spmm_ring_pallas
-
+def test_ring_rejects_indivisible_n(problem, mesh):
     m, bell, B, _ = problem
     dev = shard_bell_rowwise(bell, mesh)
     bad = jnp.asarray(B[:, :60])  # 60 % 8 != 0
     with pytest.raises(ValueError, match="divisible"):
-        spmm_ring_pallas(dev, bad, mesh)
+        spmm_ring(dev, bad, mesh)
 
 
-def test_fused_reduce_scatter_kernel_matches_oracle(problem, mesh):
-    """The compute-fused ring reduce-scatter (partial-product compute
-    overlapping the accumulated stripe's ICI transfer, one pallas_call)
-    must match the scipy oracle and the XLA psum_scatter layout."""
-    from sparta_tpu.parallel import (
-        pad_block_rows,
-        spmm_colsplit_reduce_scatter,
-        spmm_reduce_scatter_pallas,
-        split_bell_cols,
-    )
-
+def test_colsplit_kernel_matches_oracle(problem, mesh):
+    """Colsplit + psum_scatter with the kernel inside shard_map (Pallas
+    interpreter) equals the scipy oracle and the XLA layout."""
     m, bell, B, C_ref = problem
     n = 8
     bell_p = pad_block_rows(bell, n)
@@ -313,19 +287,18 @@ def test_fused_reduce_scatter_kernel_matches_oracle(problem, mesh):
     Bp[: B.shape[0]] = B
     args = (jnp.asarray(ci), jnp.asarray(nb), jnp.asarray(v),
             jnp.asarray(Bp.reshape(n, k_part * bw, N)))
-    C = np.asarray(spmm_reduce_scatter_pallas(*args, mesh))
+    C = np.asarray(spmm_colsplit_reduce_scatter(*args, mesh,
+                                                interpret=True))
     np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-4, atol=1e-4)
     C2 = np.asarray(spmm_colsplit_reduce_scatter(*args, mesh))
     np.testing.assert_allclose(C[: m.rows], C2[: m.rows], rtol=1e-5,
                                atol=1e-5)
 
 
-def test_fused_reduce_scatter_rejects_unpadded_rows(mesh):
-    from sparta_tpu.parallel import spmm_reduce_scatter_pallas
-
-    ci = jnp.zeros((8, 3, 1), jnp.int32)  # 3 block rows, ring of 8
+def test_colsplit_rejects_unpadded_rows(mesh):
+    ci = jnp.zeros((8, 3, 1), jnp.int32)  # 3 block rows, 8 devices
     nb = jnp.zeros((8, 3), jnp.int32)
     v = jnp.zeros((8, 3, 1, 16, 16), jnp.float32)
     B = jnp.zeros((8, 16, 32), jnp.float32)
     with pytest.raises(ValueError, match="pad_block_rows"):
-        spmm_reduce_scatter_pallas(ci, nb, v, B, mesh)
+        spmm_colsplit_reduce_scatter(ci, nb, v, B, mesh)

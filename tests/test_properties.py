@@ -36,12 +36,11 @@ def _spmm_backends():
     )
 
     def fine(m):
-        dev = FineDevice.from_csr(m, dtype=jnp.float32, tile_rows=128,
-                                  chunk=512)
+        dev = FineDevice.from_csr(m, dtype=jnp.float32)
         return lambda B: np.asarray(fine_spmm(dev, jnp.asarray(B)))
 
     def dedup(m):
-        dev = DedupDevice.from_csr(m, dtype=jnp.float32, chunk=512)
+        dev = DedupDevice.from_csr(m, dtype=jnp.float32, chunk=128)
         return lambda B: np.asarray(dedup_spmm(dev, jnp.asarray(B)))
 
     def fell(m):
@@ -63,29 +62,24 @@ def _spmm_backends():
 
         return run
 
-    def bell_unrolled(m):
-        """The flagship guard-free unrolled Pallas kernel (interpret mode on
-        CPU) — the one production backend the property matrix was missing."""
-        from sparta_tpu.ops.bell_compact import (
-            bell_spmm_pallas_compact_unrolled,
-            compact_from_host_padded,
-        )
+    def bell_triton(m):
+        """The blocked Triton kernel (Pallas interpreter on the CPU)."""
+        from sparta_tpu.ops import bell_spmm_triton
 
         bell = bell_from_csr(m, None, block_row_size=128)
-        cdev = compact_from_host_padded(bell, chunk=2, dtype=jnp.float32)
+        dev = BellDevice.from_host(bell, dtype=jnp.float32)
 
         def run(B):
-            Bp = np.zeros((bell.shape[1], max(-(-B.shape[1] // 128) * 128,
-                                              128)), B.dtype)
-            Bp[: m.cols, : B.shape[1]] = B
-            out = np.asarray(bell_spmm_pallas_compact_unrolled(
-                cdev, jnp.asarray(Bp), tn=128, chunk=2))
-            return out[: m.rows, : B.shape[1]]
+            Bp = np.zeros((bell.shape[1], B.shape[1]), B.dtype)
+            Bp[: m.cols] = B
+            out = np.asarray(bell_spmm_triton(dev, jnp.asarray(Bp),
+                                              interpret=True))
+            return out[: m.rows]
 
         return run
 
     return [("fine", fine), ("dedup", dedup), ("fell", fell), ("ell", ell),
-            ("bell_natural", bell_natural), ("bell_unrolled", bell_unrolled)]
+            ("bell_natural", bell_natural), ("bell_triton", bell_triton)]
 
 
 BACKENDS = _spmm_backends()

@@ -1,269 +1,174 @@
-"""Int8 quantized SpMM accuracy."""
+"""Int8 / fp8 quantized blocked SpMM: accuracy against the fp32 product,
+the kernel (Pallas interpreter) against the plain XLA path, and the exact
+dequantized math."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from sparta_tpu.formats import bell_from_csr, random_block_csr
-from sparta_tpu.ops import BellDevice, pad_b_for_bell
-from sparta_tpu.ops.quant import QBellDevice, bell_spmm_int8, quantize_b
+from sparta_tpu.ops import pad_b_for_bell
+from sparta_tpu.ops.quant import (
+    QBellDevice,
+    bell_spmm_quant,
+    int32_overflow_possible,
+    quantize_b_cols,
+    quantize_b_global_cols,
+)
+
+QDTYPES = [jnp.int8, jnp.float8_e4m3fn]
+
+
+def _problem(seed=11, intra=0.8, n=256):
+    m = random_block_csr(n, n, block=16, block_density=0.2,
+                         intra_density=intra, seed=seed, shuffle_rows=False)
+    bell = bell_from_csr(m, None, block_row_size=16)
+    B = np.random.default_rng(0).standard_normal((n, 64)).astype(np.float32)
+    return m, bell, pad_b_for_bell(B, bell), np.asarray(m.to_scipy() @ B)
+
+
+def _rel(got, ref, rows):
+    got = np.asarray(got, np.float32)[:rows]
+    return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9)
 
 
 def test_int8_spmm_matched_accuracy():
-    m = random_block_csr(256, 256, block=16, block_density=0.2, intra_density=0.8,
-                         seed=11, shuffle_rows=False)
-    bell = bell_from_csr(m, None, block_row_size=16)
-    dev = BellDevice.from_host(bell)
-    q = QBellDevice.from_bell(dev)
-    B = np.random.default_rng(0).standard_normal((256, 64)).astype(np.float32)
-    Bq, bscale = quantize_b(pad_b_for_bell(B, bell), bell.block_col_size)
-    C = np.asarray(bell_spmm_int8(q, Bq, bscale))
-    C_ref = np.asarray(m.to_scipy() @ B)
-    rel = np.abs(C[:256] - C_ref).max() / (np.abs(C_ref).max() + 1e-9)
-    assert rel < 2e-2  # int8 matched-accuracy criterion
+    """Per-row A and per-(stripe, column) B scales: within the 1e-2 gate."""
+    m, bell, Bp, C_ref = _problem()
+    q = QBellDevice.from_bell(bell)
+    Bq, bscale = quantize_b_cols(Bp, bell.block_col_size)
+    assert _rel(bell_spmm_quant(q, Bq, bscale), C_ref, m.rows) < 1e-2
 
 
-def test_int8_roundtrip_quantization():
-    m = random_block_csr(64, 64, block=8, block_density=0.5, seed=3,
+@pytest.mark.parametrize("dtype,tol", [(jnp.int8, 1e-2),
+                                       (jnp.float8_e4m3fn, 8e-2)])
+def test_int8_roundtrip_quantization(dtype, tol):
+    m = random_block_csr(64, 64, block=16, block_density=0.5, seed=3,
                          shuffle_rows=False)
-    bell = bell_from_csr(m, None, block_row_size=8)
-    dev = BellDevice.from_host(bell)
-    q = QBellDevice.from_bell(dev)
-    deq = np.asarray(q.q_vals, dtype=np.float32) * np.asarray(q.scales)[:, :, None, None]
-    rel = np.abs(deq - np.asarray(dev.vals)).max() / (
-        np.abs(np.asarray(dev.vals)).max() + 1e-9
-    )
-    assert rel < 1e-2
+    bell = bell_from_csr(m, None, block_row_size=16)
+    q = QBellDevice.from_bell(bell, dtype=dtype)
+    nbr, max_nb, bh, bw = q.q_vals.shape
+    scales = np.asarray(q.row_scales).reshape(nbr, 1, bh, 1)
+    deq = np.asarray(q.q_vals, dtype=np.float32) * scales
+    vals = np.asarray(bell.vals, np.float32)
+    # e4m3 keeps 3 mantissa bits (~6% step); int8 ~1/254 of the row amax
+    assert np.abs(deq - vals).max() / (np.abs(vals).max() + 1e-9) < tol
 
 
-def test_int8_unrolled_matches_xla_int8():
-    """Pallas int8 unrolled kernel == XLA int8 path (same quantized math)."""
-    import jax.numpy as jnp
-
-    from sparta_tpu.formats import bell_from_csr, random_block_csr
-    from sparta_tpu.ops import BellDevice
-    from sparta_tpu.ops.quant import (
-        QBellCompactDevice,
-        QBellDevice,
-        bell_spmm_int8,
-        bell_spmm_int8_unrolled,
-        quantize_b,
-    )
-
-    m = random_block_csr(128, 128, block=8, block_density=0.3,
-                         intra_density=0.6, seed=21)
-    bell = bell_from_csr(m, None, block_row_size=8)
-    B = np.random.default_rng(2).standard_normal((128, 32)).astype(np.float32)
-
-    qd = QBellDevice.from_bell(BellDevice.from_host(bell))
-    Bq, bscale = quantize_b(jnp.asarray(B), 8)
-    C_xla = np.asarray(bell_spmm_int8(qd, Bq, bscale))
-
-    qc = QBellCompactDevice.from_bell(bell, chunk=2)
-    C_pl = np.asarray(
-        bell_spmm_int8_unrolled(
-            qc, jnp.asarray(Bq).reshape(-1, 32), bscale, tn=32, chunk=2
-        )
-    )
-    np.testing.assert_allclose(C_pl[: m.rows], C_xla[: m.rows],
-                               rtol=1e-5, atol=1e-5)
-
-    # and both approximate the fp32 truth within int8 quantization error
-    C_ref = m.to_scipy() @ B
-    rel = np.abs(C_pl[: m.rows] - C_ref).max() / (np.abs(C_ref).max() + 1e-9)
-    assert rel < 0.05, rel
+@pytest.mark.parametrize("dtype", QDTYPES)
+@pytest.mark.parametrize("per_col", [False, True])
+def test_int8_unrolled_matches_xla_int8(dtype, per_col):
+    """The kernel (Pallas interpreter) == the XLA path, same quantized
+    math, for both scale schemes and both 8-bit dtypes."""
+    m, bell, Bp, C_ref = _problem(seed=21, intra=0.6)
+    q = QBellDevice.from_bell(bell, dtype=dtype)
+    Bq, bs = (quantize_b_global_cols(Bp, dtype=dtype) if per_col
+              else quantize_b_cols(Bp, bell.block_col_size, dtype=dtype))
+    got = np.asarray(bell_spmm_quant(q, Bq, bs, interpret=True))
+    want = np.asarray(bell_spmm_quant(q, Bq, bs))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert _rel(got, C_ref, m.rows) < (2e-2 if dtype == jnp.int8 else 8e-2)
 
 
 def test_fp8_spmm_accuracy_and_bound():
-    """fp8(e4m3) kernel: correct within the e4m3 error bound, and int8 with
-    per-block scales is at least as accurate (VERDICT r1 #9)."""
-    from sparta_tpu.ops.quant import (
-        FP8BellCompactDevice,
-        QBellCompactDevice,
-        bell_spmm_fp8_unrolled,
-        bell_spmm_int8_unrolled,
-        quantize_b,
-        quantize_b_fp8,
-    )
-
-    m = random_block_csr(256, 256, block=16, block_density=0.2,
-                         intra_density=0.8, seed=11, shuffle_rows=False)
-    bell = bell_from_csr(m, None, block_row_size=16)
-    B = np.random.default_rng(0).standard_normal((256, 64)).astype(np.float32)
-    Bp = pad_b_for_bell(B, bell)
-    C_ref = np.asarray(m.to_scipy() @ B)
-    denom = np.abs(C_ref).max() + 1e-9
-
-    q8 = FP8BellCompactDevice.from_bell(bell, chunk=2)
-    Bq8, bs8 = quantize_b_fp8(jnp.asarray(Bp), bell.block_col_size)
-    C8 = np.asarray(bell_spmm_fp8_unrolled(q8, Bq8, bs8, tn=64, chunk=2))
-    rel_fp8 = np.abs(C8[:256] - C_ref).max() / denom
+    """fp8(e4m3): correct within the e4m3 error bound, and int8 with the
+    same scale scheme is at least as accurate."""
+    m, bell, Bp, C_ref = _problem()
+    q8 = QBellDevice.from_bell(bell, dtype=jnp.float8_e4m3fn)
+    Bq8, bs8 = quantize_b_cols(Bp, 16, dtype=jnp.float8_e4m3fn)
+    rel_fp8 = _rel(bell_spmm_quant(q8, Bq8, bs8), C_ref, m.rows)
     # e4m3: 3 mantissa bits -> ~6% elementwise; accumulation averages it out
     assert rel_fp8 < 8e-2, rel_fp8
-
-    qi = QBellCompactDevice.from_bell(bell, chunk=2)
-    Bqi, bsi = quantize_b(jnp.asarray(Bp), bell.block_col_size)
-    Ci = np.asarray(bell_spmm_int8_unrolled(
-        qi, jnp.asarray(Bqi).reshape(Bp.shape), bsi, tn=64, chunk=2))
-    rel_int8 = np.abs(Ci[:256] - C_ref).max() / denom
-    assert rel_int8 <= rel_fp8 * 1.05  # int8+scales at least as accurate
+    qi = QBellDevice.from_bell(bell)
+    Bqi, bsi = quantize_b_cols(Bp, 16)
+    rel_int8 = _rel(bell_spmm_quant(qi, Bqi, bsi), C_ref, m.rows)
+    assert rel_int8 <= rel_fp8 * 1.05
 
 
 def test_fp8_roundtrip_quantization():
-    from sparta_tpu.ops.quant import FP8BellCompactDevice
-
-    m = random_block_csr(64, 64, block=8, block_density=0.5, seed=3,
-                         shuffle_rows=False)
-    bell = bell_from_csr(m, None, block_row_size=8)
-    q = FP8BellCompactDevice.from_bell(bell, chunk=1)
-    deq = (np.asarray(q.q_vals, dtype=np.float32)
-           * np.asarray(q.scales_flat)[:, None, None])
-    dense_bell = BellDevice.from_host(bell)
-    # compare block-by-block through the compact layout
-    rp = np.asarray(q.row_ptr)
-    nb = np.asarray(bell.nb_row)
-    worst = 0.0
-    for i in range(bell.n_block_rows):
-        n = int(nb[i])
-        ref = np.asarray(dense_bell.vals[i, :n], dtype=np.float32)
-        got = deq[rp[i] : rp[i] + n]
-        if ref.size:
-            worst = max(worst, np.abs(got - ref).max()
-                        / (np.abs(ref).max() + 1e-9))
-    assert worst < 8e-2  # e4m3 relative step
+    """B's fp8 quantization round-trips within the e4m3 step."""
+    B = np.random.default_rng(2).standard_normal((64, 32)).astype(np.float32)
+    q, s = quantize_b_cols(jnp.asarray(B), 16, dtype=jnp.float8_e4m3fn)
+    deq = (np.asarray(q, np.float32).reshape(4, 16, 32)
+           * np.asarray(s)[:, None, :]).reshape(64, 32)
+    assert np.abs(deq - B).max() / np.abs(B).max() < 8e-2
 
 
 def test_int8_rowcol_accuracy_beats_per_stripe():
-    """Row/col-scaled int8 kernel: correct vs the fp32 oracle AND at least
-    as accurate as the per-block/per-stripe scheme (the headline gate
-    depends on this — the coarser scheme fails 1e-2 marginally)."""
-    from sparta_tpu.ops.quant import (
-        QBellCompactDevice,
-        QBellRowColDevice,
-        bell_spmm_int8_rowcol,
-        bell_spmm_int8_unrolled,
-        quantize_b,
-        quantize_b_cols,
-    )
-
-    m = random_block_csr(256, 256, block=16, block_density=0.2,
-                         intra_density=0.3, seed=13, shuffle_rows=False)
-    bell = bell_from_csr(m, None, block_row_size=16)
-    B = np.random.default_rng(5).standard_normal((256, 64)).astype(np.float32)
-    Bp = pad_b_for_bell(B, bell)
-    C_ref = np.asarray(m.to_scipy() @ B)
-    denom = np.abs(C_ref).max() + 1e-9
-
-    qr = QBellRowColDevice.from_bell(bell, chunk=2)
-    Bqr, bsr = quantize_b_cols(jnp.asarray(Bp), bell.block_col_size)
+    """Per-(stripe, column) B scales are at least as accurate as one scale
+    per column (the headline gate depends on the finer scheme)."""
+    m, bell, Bp, C_ref = _problem(seed=13, intra=0.3)
+    q = QBellDevice.from_bell(bell)
+    Bqr, bsr = quantize_b_cols(Bp, bell.block_col_size)
     assert bsr.shape == (Bp.shape[0] // bell.block_col_size, 64)
-    Cr = np.asarray(bell_spmm_int8_rowcol(qr, Bqr, bsr, tn=64, chunk=2))
-    rel_rc = np.abs(Cr[:256] - C_ref).max() / denom
-
-    qi = QBellCompactDevice.from_bell(bell, chunk=2)
-    Bqi, bsi = quantize_b(jnp.asarray(Bp), bell.block_col_size)
-    Ci = np.asarray(bell_spmm_int8_unrolled(
-        qi, jnp.asarray(Bqi).reshape(Bp.shape), bsi, tn=64, chunk=2))
-    rel_st = np.abs(Ci[:256] - C_ref).max() / denom
-
+    rel_rc = _rel(bell_spmm_quant(q, Bqr, bsr), C_ref, m.rows)
+    Bqg, bsg = quantize_b_global_cols(Bp)
+    rel_g = _rel(bell_spmm_quant(q, Bqg, bsg), C_ref, m.rows)
     assert rel_rc < 2e-2, rel_rc
-    assert rel_rc <= rel_st * 1.05, (rel_rc, rel_st)
+    assert rel_rc <= rel_g * 1.05, (rel_rc, rel_g)
 
 
-def test_int8_rowcol_matches_dequant_oracle():
-    """The Pallas rowcol kernel == the exact dequantized math computed in
-    numpy from the same quantized arrays (bitwise-equivalent int32 dots,
-    fp32 scale application)."""
-    from sparta_tpu.ops.quant import (
-        QBellRowColDevice,
-        bell_spmm_int8_rowcol,
-        quantize_b_cols,
-    )
-
-    m = random_block_csr(128, 128, block=8, block_density=0.4,
-                         intra_density=0.7, seed=23)
-    bell = bell_from_csr(m, None, block_row_size=8)
-    B = np.random.default_rng(7).standard_normal((128, 32)).astype(np.float32)
-    qr = QBellRowColDevice.from_bell(bell, chunk=2)
-    Bq, bs = quantize_b_cols(jnp.asarray(B), 8)
-    got = np.asarray(bell_spmm_int8_rowcol(qr, Bq, bs, tn=32, chunk=2))
-
-    rp = np.asarray(qr.row_ptr)
-    cols = np.asarray(qr.cols_flat)
-    qv = np.asarray(qr.q_vals, dtype=np.int32)
-    rs = np.asarray(qr.row_scales)
-    Bqn = np.asarray(Bq, dtype=np.int32).reshape(-1, 8, 32)
-    bsn = np.asarray(bs)
-    nbr = qr.n_block_rows
-    ref = np.zeros((nbr, 8, 32), np.float32)
+def _dequant_oracle(q, Bq, bs, per_col):
+    """The exact dequantized math in numpy from the same quantized arrays."""
+    cols = np.asarray(q.cols_idx)
+    nb = np.asarray(q.nb_row)
+    qv = np.asarray(q.q_vals, dtype=np.int64)
+    nbr, _, bh, bw = qv.shape
+    N = Bq.shape[1]
+    Bqn = np.asarray(Bq, dtype=np.int64).reshape(-1, bw, N)
+    bsn = np.asarray(bs, np.float64)
+    out = np.zeros((nbr, bh, N))
     for i in range(nbr):
-        for t in range(rp[i], rp[i + 1]):
-            jb = cols[t]
-            d = (qv[t] @ Bqn[jb]).astype(np.float32)
-            ref[i] += d * bsn[jb][None, :]
-        ref[i] *= rs[i][:, None]
-    np.testing.assert_allclose(got, ref.reshape(-1, 32), rtol=1e-6, atol=1e-6)
+        for t in range(int(nb[i])):
+            d = (qv[i, t] @ Bqn[cols[i, t]]).astype(np.float64)
+            out[i] += d if per_col else d * bsn[cols[i, t]][None, :]
+    out = out.reshape(nbr * bh, N) * np.asarray(q.row_scales)[:, None]
+    return out * bsn[None, :] if per_col else out
 
 
-def test_int8_global_matches_dequant_oracle_and_accuracy():
-    """Per-channel int8 kernel (scale-free int32 inner loop): bitwise-equal
-    to the exact dequantized math, and within the same accuracy class as
-    the rowcol scheme on block-sparse data (global per-column amax ~=
-    per-stripe per-column amax for non-adversarial B)."""
-    from sparta_tpu.ops.quant import (
-        QBellRowColDevice,
-        bell_spmm_int8_global,
-        quantize_b_global_cols,
-    )
+@pytest.mark.parametrize("interpret", [False, True])
+def test_int8_rowcol_matches_dequant_oracle(interpret):
+    m, bell, Bp, _ = _problem(seed=23, intra=0.7, n=128)
+    q = QBellDevice.from_bell(bell)
+    Bq, bs = quantize_b_cols(Bp, 16)
+    got = np.asarray(bell_spmm_quant(q, Bq, bs, interpret=interpret))
+    np.testing.assert_allclose(got, _dequant_oracle(q, Bq, bs, False),
+                               rtol=1e-5, atol=1e-5)
 
-    m = random_block_csr(256, 256, block=16, block_density=0.25,
-                         intra_density=0.5, seed=31, shuffle_rows=False)
-    bell = bell_from_csr(m, None, block_row_size=16)
-    B = np.random.default_rng(9).standard_normal((256, 64)).astype(np.float32)
-    Bp = pad_b_for_bell(B, bell)
-    qr = QBellRowColDevice.from_bell(bell, chunk=2)
-    Bq, bs = quantize_b_global_cols(jnp.asarray(Bp))
+
+@pytest.mark.parametrize("interpret", [False, True])
+def test_int8_global_matches_dequant_oracle_and_accuracy(interpret):
+    """Per-column B scales: a pure int32 dot-accumulate with the scales in
+    the epilogue, equal to the exact dequantized math."""
+    m, bell, Bp, C_ref = _problem(seed=31, intra=0.5)
+    q = QBellDevice.from_bell(bell)
+    Bq, bs = quantize_b_global_cols(Bp)
     assert bs.shape == (64,)
-    got = np.asarray(bell_spmm_int8_global(qr, Bq, bs, tn=64, chunk=2))
-
-    # exact dequant oracle (int32 dots are exact; scales applied once)
-    rp = np.asarray(qr.row_ptr)
-    cols = np.asarray(qr.cols_flat)
-    qv = np.asarray(qr.q_vals, dtype=np.int32)
-    rs = np.asarray(qr.row_scales)
-    bw = bell.block_col_size
-    Bqn = np.asarray(Bq, dtype=np.int64)
-    nbr = qr.n_block_rows
-    acc = np.zeros((nbr, 16, 64), np.int64)
-    for i in range(nbr):
-        for t in range(rp[i], rp[i + 1]):
-            jb = cols[t]
-            acc[i] += qv[t].astype(np.int64) @ Bqn[jb * bw:(jb + 1) * bw]
-    ref = acc.astype(np.float32) * rs[:, :, None] * np.asarray(bs)[None, None]
-    np.testing.assert_allclose(got, ref.reshape(-1, 64), rtol=1e-6, atol=1e-6)
-
-    # end-to-end accuracy vs the fp32 product stays in the gate's class
-    C_ref = np.asarray(m.to_scipy() @ B)
-    rel = np.abs(got[:256] - C_ref).max() / (np.abs(C_ref).max() + 1e-9)
-    assert rel < 2e-2, rel
+    got = np.asarray(bell_spmm_quant(q, Bq, bs, interpret=interpret))
+    np.testing.assert_allclose(got, _dequant_oracle(q, Bq, bs, True),
+                               rtol=1e-5, atol=1e-5)
+    assert _rel(got, C_ref, m.rows) < 2e-2
 
 
 def test_int8_global_overflow_guard():
-    """A structure whose worst row could overflow int32 accumulation must
-    be rejected, not silently wrong."""
-    import pytest
-
-    from sparta_tpu.ops.quant import QBellRowColDevice, bell_spmm_int8_global
-
+    """A structure whose worst row could overflow int32 accumulation is
+    rejected, not silently wrong."""
     m = random_block_csr(128, 128, block=128, block_density=1.0,
                          intra_density=1.0, seed=1)
     bell = bell_from_csr(m, None, block_row_size=128)
-    qr = QBellRowColDevice.from_bell(bell, chunk=1)
-    # forge a row_ptr claiming 2^31-breaking blocks/row (constructing the
-    # real thing would need ~130k blocks); the guard reads only row_ptr
-    import jax.numpy as _jnp
-    qr = QBellRowColDevice(
-        row_ptr=_jnp.asarray([0, 2**31 // (128 * 127 * 127) + 1], np.int32),
-        cols_flat=qr.cols_flat, row_scales=qr.row_scales, q_vals=qr.q_vals,
-        chunk_multiple=1)
+    q = QBellDevice.from_bell(bell)
+    assert not int32_overflow_possible(q)
+    # forge the host-side block count (the real thing needs ~1000 blocks)
+    q = QBellDevice(q.cols_idx, q.nb_row, q.q_vals, q.row_scales,
+                    nb_max=2**31 // (128 * 127 * 127) + 1)
+    assert int32_overflow_possible(q)
     with pytest.raises(ValueError, match="overflow"):
-        bell_spmm_int8_global(qr, _jnp.zeros((128, 128), _jnp.int8),
-                              _jnp.ones((128,), _jnp.float32))
+        bell_spmm_quant(q, jnp.zeros((128, 128), jnp.int8),
+                        jnp.ones((128,), jnp.float32))
+
+
+def test_quant_dtype_mismatch_rejected():
+    m, bell, Bp, _ = _problem(n=64)
+    q = QBellDevice.from_bell(bell, dtype=jnp.int8)
+    Bq, bs = quantize_b_cols(Bp, 16, dtype=jnp.float8_e4m3fn)
+    with pytest.raises(ValueError, match="but B is"):
+        bell_spmm_quant(q, Bq, bs)

@@ -50,7 +50,7 @@ def test_sequence_sharded_attention_matches_oracle(mesh4, window,
         global_blocks=global_blocks))
     mask = build_block_mask(T, T, block, window=window, causal=True,
                             global_blocks=global_blocks)
-    ref = np.asarray(block_sparse_attention(q, k, v, mask, impl="xla"))
+    ref = np.asarray(block_sparse_attention(q, k, v, mask))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
@@ -65,7 +65,7 @@ def test_sequence_sharded_attention_batch_dim(mesh4):
         q, k, v, mesh4, "x", block=blk, window=2, global_blocks=1))
     mask = build_block_mask(T, T, blk, window=2, causal=True,
                             global_blocks=1)
-    ref = np.asarray(block_sparse_attention(q, k, v, mask, impl="xla"))
+    ref = np.asarray(block_sparse_attention(q, k, v, mask))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 

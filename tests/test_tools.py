@@ -289,7 +289,7 @@ def test_plan_subcommand(matrix_file, capsys):
     main(["plan", matrix_file, "-c", "256", "-b", "3"])
     out = capsys.readouterr().out
     assert "unstructured (csr_spmm_auto) candidates" in out
-    assert "<- chosen" in out
+    assert "<- fewest" in out
     main(["plan", matrix_file, "-c", "256", "-b", "3", "-t", "0.5"])
     out = capsys.readouterr().out
     assert "reordered blocking (algo 3, tau=0.5)" in out

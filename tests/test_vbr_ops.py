@@ -53,11 +53,12 @@ def test_vbr_bucketing_covers_all_blocks(problem):
 
 
 def test_vbr_spmm_pallas_matches_oracle():
-    """Height-bucketed Pallas VBR SpMM == scipy oracle (ragged heights)."""
+    """Height-bucketed VBR SpMM through the kernel (Pallas interpreter) ==
+    scipy oracle (ragged heights padded to kernel tiles)."""
     import jax.numpy as jnp
 
     from sparta_tpu.formats import random_block_csr, vbr_from_csr
-    from sparta_tpu.ops import VbrPallasDevice, vbr_spmm_pallas
+    from sparta_tpu.ops import vbr_kernel_device, vbr_spmm_pallas
     from sparta_tpu.reorder import BlockingEngine
     from sparta_tpu.utils import get_permutation
 
@@ -67,30 +68,31 @@ def test_vbr_spmm_pallas_matches_oracle():
     g = eng.get_grouping(m)
     vbr = vbr_from_csr(m, g, col_block_size=16)
     assert len(np.unique(vbr.heights)) > 1  # genuinely ragged
-    dev = VbrPallasDevice.from_host(vbr, chunk=2)
+    dev = vbr_kernel_device(vbr)
+    assert all(b.vals.shape[2] >= 16 for b in dev.buckets)
     K = vbr.block_cols * vbr.block_col_size
     B = np.zeros((K, 32), dtype=np.float32)
     B[: m.cols] = np.random.default_rng(3).standard_normal((m.cols, 32))
-    C = np.asarray(vbr_spmm_pallas(dev, jnp.asarray(B), tn=32))
+    C = np.asarray(vbr_spmm_pallas(dev, jnp.asarray(B), interpret=True))
     C_ref = (m.to_scipy() @ B[: m.cols])[get_permutation(g)]
     np.testing.assert_allclose(C[: m.rows], C_ref, rtol=1e-4, atol=1e-4)
 
 
 def test_vbr_spmm_pallas_empty_height_bucket():
-    """A height bucket whose block-rows are all empty must not crash the
-    chunked DMA (regression: vals padded to 1 < chunk rows)."""
+    """A height bucket whose block-rows are all empty contributes zeros."""
     import jax.numpy as jnp
 
     from sparta_tpu.formats import CSR
     from sparta_tpu.formats.vbr import vbr_from_csr_partition
-    from sparta_tpu.ops import VbrPallasDevice, vbr_spmm_pallas
+    from sparta_tpu.ops import vbr_kernel_device, vbr_spmm_pallas
 
     # rows 8..20 are empty and form their own block-row (height 13)
     r = np.array([0, 3, 7, 22, 23])
     c = np.array([1, 9, 4, 2, 15])
     m = CSR.from_coo(r, c, np.ones(5, dtype=np.float32), (24, 16))
-    vbr = vbr_from_csr_partition(m, np.array([0, 8, 21, 24]), col_block_size=8)
-    dev = VbrPallasDevice.from_host(vbr, chunk=2)
+    vbr = vbr_from_csr_partition(m, np.array([0, 8, 21, 24]),
+                                 col_block_size=16)
+    dev = vbr_kernel_device(vbr)
     B = np.random.default_rng(0).standard_normal((16, 32)).astype(np.float32)
-    C = np.asarray(vbr_spmm_pallas(dev, jnp.asarray(B), tn=32))
+    C = np.asarray(vbr_spmm_pallas(dev, jnp.asarray(B), interpret=True))
     np.testing.assert_allclose(C[:24], m.to_scipy() @ B, rtol=1e-5, atol=1e-5)
